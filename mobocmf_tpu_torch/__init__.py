@@ -1,0 +1,44 @@
+"""mobocmf_tpu_torch: the PyTorch / CUDA port of mobocmf_tpu.
+
+The JAX package `mobocmf_tpu` is the reference; this package mirrors its
+module layout (core/, kernels/, linalg/, models/, mlls/, fit/,
+test_functions/) so each module's counterpart is found by name. It imports
+torch, numpy and scipy only — never jax, and nothing of `mobocmf_tpu`.
+
+Ported so far: the MFDGP model and its ELBO, and two-phase stacked training
+through `BlackBoxMFDGPFitter`, with the blocked Cholesky as a hand-written
+CUDA kernel (`linalg/chol.py`, `csrc/chol.cu`).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
+GPU and no device named they raise (core/device.py).
+"""
+
+import torch
+
+# TF32 is the Hopper analogue of the TPU's bf16 matmul passes: it makes the
+# expansion-trick Grams indefinite (mobocmf_tpu/linalg/fused_svgp.py:13-15).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter  # noqa: E402
+from mobocmf_tpu_torch.models.mfdgp import (  # noqa: E402
+    MFDGPConfig,
+    MFDGPConsts,
+    MFDGPModel,
+    MFDGPParams,
+    TL,
+    init_mfdgp,
+)
+
+MFDGP = MFDGPModel
+
+__all__ = [
+    "BlackBoxMFDGPFitter",
+    "MFDGP",
+    "MFDGPConfig",
+    "MFDGPConsts",
+    "MFDGPModel",
+    "MFDGPParams",
+    "TL",
+    "init_mfdgp",
+]

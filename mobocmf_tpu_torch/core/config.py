@@ -1,0 +1,26 @@
+"""Global numerical configuration (counterpart of mobocmf_tpu/core/config.py).
+
+The reference runs float64 with a 2e-6 jitter on kernel matrices; the card
+runs float32 with a widened jitter, the CPU parity tests float64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Jitter added to K(Z,Z) before Cholesky: the reference's 2e-6 in f64,
+# widened for f32 where 2e-6 is only ~17x machine eps.
+JITTER_F64 = 2e-6
+JITTER_F32 = 1e-5
+
+# Acquisition: eval-mode samples per test point (reference mfdgp.py:23).
+NUM_SAMPLES_FOR_ACQUISITION = 25
+
+# Variance floor for predictive variances (numerical safety only).
+MIN_VARIANCE = 1e-12
+
+
+def default_jitter(dtype: torch.dtype) -> float:
+    if dtype == torch.float64:
+        return JITTER_F64
+    return JITTER_F32

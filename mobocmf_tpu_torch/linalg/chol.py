@@ -1,0 +1,139 @@
+"""K1: batched Cholesky with the escalating-jitter ladder
+(counterpart of mobocmf_tpu/linalg/chol.py and of the ladder in
+mobocmf_tpu/linalg/ops.py::_chol_escalate / _rescue).
+
+`cholesky(a, jitter, ladder)` factorizes every matrix of a (B, n, n) batch
+(or one (n, n) matrix) after adding its jitter to the diagonal. On a CUDA
+tensor it launches the hand-written kernel of csrc/chol.cu, which runs the
+whole ladder on the card (no host read per factorization); on a CPU tensor
+it runs `cholesky_plain`, the same contract in plain PyTorch. There is no
+fallback from one to the other.
+
+Contract of both: the lower factor with a zeroed strict upper triangle; a
+matrix that fails to factorize (after the ladder, if asked) has a NaN
+diagonal from the failed pivot on — the plain version NaN-fills it whole —
+and neither raises. With `ladder`, the starting jitter is floored at
+4*eps*scale and a failed matrix restarts at
+j1 = max(100*j0, 256*eps*scale), then j2 = max(100*j1, sqrt(eps)*scale),
+scale = mean |diag(a)|, exactly _rescue's per-element semantics.
+
+Counters: `launches` counts kernel launches (CUDA path only);
+`escalations()` counts factorizations that climbed the ladder, summed on
+the device without a host read until asked.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+# kernel launches of csrc/chol.cu since the last reset_counts()
+launches = 0
+_escalated: Dict[torch.device, torch.Tensor] = {}
+
+_C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def reset_counts() -> None:
+    global launches
+    launches = 0
+    _escalated.clear()
+
+
+def escalations() -> int:
+    """Factorizations that needed a ladder step since the last reset."""
+    return int(sum(int(t.item()) for t in _escalated.values()))
+
+
+def _jitter_vector(jitter, batch: int, like: torch.Tensor) -> torch.Tensor:
+    if jitter is None:
+        return torch.zeros((batch,), dtype=like.dtype, device=like.device)
+    if isinstance(jitter, torch.Tensor):
+        return jitter.to(dtype=like.dtype, device=like.device).expand(batch).contiguous()
+    return torch.full((batch,), float(jitter), dtype=like.dtype, device=like.device)
+
+
+def _attempt(a: torch.Tensor, j: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    l, info = torch.linalg.cholesky_ex(a + j[:, None, None] * eye)
+    ok = (info == 0) & torch.isfinite(torch.diagonal(l, dim1=-2, dim2=-1)).all(-1)
+    l = torch.where(ok[:, None, None], l, torch.full_like(l, float("nan")))
+    return l, ok
+
+
+def cholesky_plain(
+    a: torch.Tensor, jitter: torch.Tensor, ladder: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel on a (B, n, n) batch with a (B,)
+    jitter: returns (l, level), level = ladder rung used per matrix."""
+    level = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    if not ladder:
+        return _attempt(a, jitter)[0], level
+    eps = torch.finfo(a.dtype).eps
+    scale = torch.mean(torch.abs(torch.diagonal(a, dim1=-2, dim2=-1)), dim=-1)
+    j = torch.maximum(jitter, 4.0 * eps * scale)
+    l, ok = _attempt(a, j)
+    for rung, floor in ((1, 256.0 * eps), (2, eps**0.5)):
+        if bool(ok.all()):
+            break
+        j = torch.where(ok, j, torch.maximum(100.0 * j, floor * scale))
+        level = torch.where(ok, level, torch.full_like(level, rung))
+        l, ok = _attempt(a, j)
+    return l, level
+
+
+def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool):
+    from mobocmf_tpu_torch import _build
+
+    global launches
+    if not a.is_contiguous():
+        raise ValueError("cholesky: the CUDA kernel takes a contiguous (B, n, n) tensor")
+    lib = _build.load("chol")
+    fn = lib.mobocmf_chol_f32 if a.dtype == torch.float32 else lib.mobocmf_chol_f64
+    fn.argtypes = _C_ARGTYPES
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(a)
+    level = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(
+            a.data_ptr(), out.data_ptr(), jitter.data_ptr(), level.data_ptr(),
+            a.shape[0], a.shape[-1], int(ladder), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cholesky: the CUDA kernel failed to launch (CUDA error {err})")
+    launches += 1
+    return out, level
+
+
+def cholesky(
+    a: torch.Tensor, jitter=None, ladder: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower Cholesky factor of a + jitter*I for each matrix of a.
+
+    a: (B, n, n) or (n, n), float32 or float64, on the CPU or a CUDA device.
+    jitter: None (no jitter), a float, or a (B,) tensor of per-matrix
+    jitters. ladder: climb the escalating-jitter ladder on failure.
+    Returns (l, level) with level the (B,) or () int32 ladder rung used.
+    """
+    if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2] or a.shape[-1] == 0:
+        raise ValueError(f"cholesky: expected (B, n, n) or (n, n), got {tuple(a.shape)}")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cholesky: float32 or float64 only, got {a.dtype}")
+    single = a.ndim == 2
+    a3 = a.unsqueeze(0) if single else a
+    jit = _jitter_vector(jitter, a3.shape[0], a3)
+    if a.device.type == "cuda":
+        l, level = _launch(a3, jit, ladder)
+    elif a.device.type == "cpu":
+        l, level = cholesky_plain(a3, jit, ladder)
+    else:
+        raise ValueError(f"cholesky: unsupported device {a.device}")
+    if ladder:
+        count = _escalated.get(a.device)
+        stepped = torch.sum(level > 0)
+        _escalated[a.device] = stepped if count is None else count + stepped
+    return (l[0], level[0]) if single else (l, level)
+

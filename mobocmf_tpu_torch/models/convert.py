@@ -1,0 +1,73 @@
+"""Carry an MFDGP's weights between the JAX package and the port, as numpy.
+
+`model_from_numpy` takes params / consts laid out like the JAX package's
+MFDGPParams / MFDGPConsts (nested tuples and dicts of numpy arrays, read by
+position: params = (layers, raw_noises), layer = (kernel dict,
+(mean, chol_raw)), consts = (z_x, acq_eps, noise_lower, noise_upper)) and
+the config as a plain dict. A single model (raw_noises of shape (F,))
+becomes a B = 1 port model; a stacked one (raw_noises (B, F)) keeps its B.
+`model_to_numpy` is the inverse: the blackbox dim is dropped when B = 1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
+from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.models.svgp import SVGPVariational
+from mobocmf_tpu_torch.util.tree import tree_map
+
+
+def model_from_numpy(
+    params, consts, config: Dict, device: DeviceLike, dtype: torch.dtype
+) -> M.MFDGPModel:
+    device = resolve_device(device)
+    stacked = np.asarray(params[1]).ndim == 2
+
+    def t(a):
+        out = torch.as_tensor(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
+        return out if stacked else out.unsqueeze(0)
+
+    layers = tuple(
+        M.MFDGPLayerParams(
+            kernel=tree_map(t, dict(kernel)),
+            variational=SVGPVariational(mean=t(var[0]), chol_raw=t(var[1])),
+        )
+        for kernel, var in params[0]
+    )
+    z_x, acq_eps, noise_lower, noise_upper = consts
+    return M.MFDGPModel(
+        params=M.MFDGPParams(layers=layers, raw_noises=t(params[1])),
+        consts=M.MFDGPConsts(
+            z_x=tuple(
+                torch.as_tensor(np.array(z, dtype=np.float64)).to(device=device, dtype=dtype)
+                for z in z_x
+            ),
+            acq_eps=t(acq_eps),
+            noise_lower=t(noise_lower),
+            noise_upper=t(noise_upper),
+        ),
+        config=M.MFDGPConfig(**dict(config)),
+    )
+
+
+def model_to_numpy(model: M.MFDGPModel) -> Tuple[M.MFDGPParams, M.MFDGPConsts, Dict]:
+    """(params, consts, config dict) with numpy leaves."""
+    single = model.params.raw_noises.shape[0] == 1
+
+    def n(a):
+        out = a.detach().cpu().numpy()
+        return out[0] if single else out
+
+    c = model.consts
+    consts = M.MFDGPConsts(
+        z_x=tuple(z.detach().cpu().numpy() for z in c.z_x),
+        acq_eps=n(c.acq_eps),
+        noise_lower=n(c.noise_lower),
+        noise_upper=n(c.noise_upper),
+    )
+    return tree_map(n, model.params), consts, dict(model.config._asdict())

@@ -1,0 +1,111 @@
+"""Where a training step's time goes on the card.
+
+    python -m mobocmf_tpu_torch.profile_train [--points 490] [--steps 20]
+
+Builds the Branin-Currin models of chip_smoke.py (490 points padded to
+m = 512, or --points 120 for m = 128, with a fourth blackbox), times
+full-batch two-phase training steps with CUDA events, then traces the same
+steps with torch.profiler and prints one JSON line: steps/s, device time
+per step and its share of the traced and of the untraced step, kernel
+launches per step, and the kernels that take the most device time. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import time
+
+import numpy as np
+import torch
+
+
+def build_model(points: int, seed: int = 7):
+    from mobocmf_tpu_torch.fit import fitter as F
+    from mobocmf_tpu_torch.fit import trainer
+    from mobocmf_tpu_torch.test_functions import synthetic as S
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(points, 2))
+    n_high = points // 4
+    fid = np.concatenate([np.zeros(points - n_high), np.ones(n_high)]).astype(int)
+    disk04 = functools.partial(S.disk_constraint, radius=0.4)
+    boxes = [
+        ("branin", S.branin_scaled_low, S.branin_scaled, False),
+        ("currin", S.currin_low, S.currin, False),
+        ("disk", S.disk_constraint, S.disk_constraint, True),
+    ]
+    if points <= 128:
+        boxes.append(("disk04", disk04, disk04, True))
+    fitter = F.BlackBoxMFDGPFitter(2, points, seed=seed, pad_data=True)
+    for name, lo, hi, is_con in boxes:
+        y = np.where(fid == 0, lo(x), hi(x))
+        fitter.initialize_mfdgp(x, y, fid, name, is_constraint=is_con)
+    model = trainer.stack_models([fitter.get_model(n, c) for n, _, _, c in boxes])
+    ys = torch.stack(fitter.ys_objs + fitter.ys_cons)
+    return fitter, model, ys
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--points", type=int, default=490)
+    parser.add_argument("--steps", type=int, default=20)
+    args = parser.parse_args()
+
+    from mobocmf_tpu_torch.fit import trainer
+    from mobocmf_tpu_torch.linalg import chol
+
+    fitter, model, ys = build_model(args.points)
+    num_data = torch.tensor(float(fitter.num_real), device="cuda")
+
+    def run(steps):
+        return trainer.train_phase_stacked(
+            model, fitter.x_train, ys, fitter.fidelities, steps, 0.001, "all_free",
+            fitter.x_train.shape[0], fitter.row_weights, num_data, generator=fitter.generator,
+        )
+
+    run(5)  # warm up: kernel build, cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(args.steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    chol.reset_counts()
+    with torch.profiler.profile(activities=activities) as prof:
+        t1 = time.perf_counter()
+        run(args.steps)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t1
+    kernels = {}
+    launches = 0
+    for evt in prof.events():
+        # device-side events, without the ranges that mirror a CPU annotation
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            evt, "is_user_annotation", False
+        ) and not evt.name.startswith("Optimizer."):
+            launches += 1
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy_us = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "m": int(fitter.x_train.shape[0]),
+        "blackboxes": int(ys.shape[0]),
+        "steps": args.steps,
+        "steps_per_s": args.steps / wall,
+        "traced_steps_per_s": args.steps / traced_wall,
+        "device_us_per_step": busy_us / args.steps,
+        "device_share_of_traced_wall": busy_us / (traced_wall * 1e6),
+        "device_share_of_untraced_step": busy_us / (wall * 1e6),
+        "kernel_launches_per_step": launches / args.steps,
+        "k1_launches_per_step": chol.launches / args.steps,
+        "top_kernels_us_per_step": {k[:80]: v / args.steps for k, v in top},
+    }))
+
+
+if __name__ == "__main__":
+    main()

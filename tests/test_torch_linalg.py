@@ -1,0 +1,171 @@
+"""K1 and the port's linalg helpers against the JAX package.
+
+On the CPU the port's `cholesky` runs its plain version; it is held against
+the JAX XLA Cholesky at f64, against the Pallas kernel itself (interpret
+mode) at f32 for n <= 128, and the ladder against JAX's safe_cholesky. The
+CUDA kernel is held against the plain version on the card in
+tests/test_torch_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobocmf_tpu.linalg import chol as jchol
+from mobocmf_tpu.linalg import ops as jops
+from mobocmf_tpu_torch.linalg import chol, ops
+
+
+def _spd(n, seed=0, batch=None):
+    rng = np.random.default_rng(seed)
+    shape = (n, n) if batch is None else (batch, n, n)
+    a = rng.normal(size=shape)
+    return a @ np.swapaxes(a, -1, -2) + n * np.eye(n)
+
+
+def _rbf_gram_shifted(n=64, seed=8, scale=1.0, min_eig_rel=-1e-5):
+    """An RBF Gram of `scale` whose smallest eigenvalue is set to
+    min_eig_rel*scale, in f32: -1e-5 fails the first rung (4*eps*scale)
+    and passes the second, -1e-3 needs the third."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, 2))
+    d2 = ((x[:, None] - x[None]) ** 2).sum(-1)
+    w, v = np.linalg.eigh(scale * np.exp(-0.5 * d2 / 0.25))
+    w[0] = min_eig_rel * scale
+    return ((v * w) @ v.T).astype(np.float32)
+
+
+def test_plain_cholesky_matches_jax_xla_f64():
+    a = _spd(40, seed=1, batch=3)
+    l, level = chol.cholesky(torch.as_tensor(a))
+    want = np.stack([np.asarray(jchol.cholesky(jnp.asarray(ai))) for ai in a])
+    np.testing.assert_allclose(l.numpy(), want, rtol=1e-12, atol=1e-12)
+    assert level.tolist() == [0, 0, 0]
+    assert np.all(np.triu(l.numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("n", [100, 128])
+def test_plain_cholesky_matches_pallas_kernel_f32(n):
+    """The Pallas kernel itself, interpret mode (single 128-block)."""
+    a = _spd(n, seed=n).astype(np.float32)
+    want = np.asarray(jchol.cholesky(jnp.asarray(a), force_pallas=True))
+    got, _ = chol.cholesky(torch.as_tensor(a))
+    assert got.dtype == torch.float32
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert rel < 2e-6, rel
+
+
+def test_plain_cholesky_matches_jax_xla_f32_multiblock():
+    # multi-block Pallas interpret mode hits a JAX-internal recursion
+    # (tests/test_linalg.py:30-35), so n > 128 compares with the XLA path
+    a = _spd(200, seed=2).astype(np.float32)
+    want = np.asarray(jchol.cholesky(jnp.asarray(a)))
+    got, _ = chol.cholesky(torch.as_tensor(a))
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert rel < 2e-6, rel
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+def test_indefinite_gives_nan_and_never_raises(ladder):
+    a = _spd(16, seed=3, batch=3)
+    w, v = np.linalg.eigh(a[1])
+    w[0] = -10.0 * w[-1]  # far below anything the ladder adds
+    a[1] = (v * w) @ v.T
+    l, level = chol.cholesky(torch.as_tensor(a), jitter=1e-6, ladder=ladder)
+    diag = torch.diagonal(l, dim1=-2, dim2=-1)
+    assert bool(torch.isnan(diag[1]).any())
+    assert bool(torch.isfinite(l[[0, 2]]).all())
+    assert level.tolist() == ([0, 2, 0] if ladder else [0, 0, 0])
+
+
+@pytest.mark.parametrize(
+    "scale,min_eig_rel,rung", [(1.0, -1e-5, 1), (1.0, -1e-3, 2), (4000.0, -1e-5, 1), (4000.0, -1e-3, 2)]
+)
+def test_f32_ladder_matches_jax_safe_cholesky(scale, min_eig_rel, rung):
+    k = _rbf_gram_shifted(scale=scale, min_eig_rel=min_eig_rel)
+    want = np.asarray(jops.safe_cholesky(jnp.asarray(k), 2e-6))
+    chol.reset_counts()
+    got = ops.safe_cholesky(torch.as_tensor(k), 2e-6)
+    _, level = chol.cholesky(torch.as_tensor(k), 2e-6, ladder=True)
+    assert level.item() == rung
+    assert chol.escalations() == 2
+    assert np.all(np.isfinite(want))
+    assert bool(torch.isfinite(got).all())
+    # f32 factors of a matrix of condition ~1e5 after the rung's jitter
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert rel < 5e-4, rel
+
+
+def test_f32_ladder_is_per_matrix():
+    """A matrix that factorizes keeps its jitter while another escalates."""
+    good = _spd(64, seed=4).astype(np.float32)
+    k = torch.as_tensor(np.stack([good, _rbf_gram_shifted(), good]))
+    l, level = chol.cholesky(k, jitter=2e-6, ladder=True)
+    assert level.tolist() == [0, 1, 0]
+    ref, _ = chol.cholesky(k[0], jitter=2e-6, ladder=True)
+    np.testing.assert_array_equal(l[0].numpy(), ref.numpy())
+
+
+def test_safe_cholesky_f64_is_one_plain_factorization():
+    k = _spd(24, seed=3) * 3000.0
+    got = ops.safe_cholesky(torch.as_tensor(k), 2e-6)
+    want = np.asarray(jops.safe_cholesky(jnp.asarray(k), 2e-6))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    plain = np.linalg.cholesky(k + 2e-6 * np.eye(24))
+    np.testing.assert_allclose(got.numpy(), plain, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_safe_cholesky_gradient_matches_jax_grad_f64(batched):
+    k = _spd(24, seed=7, batch=2 if batched else None)
+    wts = np.arange(24.0)[None, :]
+
+    def loss_jax(kk):
+        l = jops.safe_cholesky(kk, 2e-6)
+        return jnp.sum(jnp.sin(l) * wts)
+
+    if batched:
+        g_jax = np.asarray(jax.grad(lambda kk: jnp.sum(jax.vmap(loss_jax)(kk)))(jnp.asarray(k)))
+    else:
+        g_jax = np.asarray(jax.grad(loss_jax)(jnp.asarray(k)))
+    kt = torch.as_tensor(k).requires_grad_(True)
+    l = ops.safe_cholesky(kt, 2e-6)
+    torch.sum(torch.sin(l) * torch.as_tensor(wts)).backward()
+    np.testing.assert_allclose(kt.grad.numpy(), g_jax, rtol=1e-8, atol=1e-10)
+
+
+def test_safe_cholesky_f32_gradient_finite_under_escalation():
+    k = torch.as_tensor(_rbf_gram_shifted(scale=4000.0, min_eig_rel=-1e-3))
+    k.requires_grad_(True)
+    l = ops.safe_cholesky(k, 2e-6)
+    (torch.sum(l * l) / 4000.0).backward()
+    assert bool(torch.isfinite(k.grad).all())
+
+
+def test_safe_cholesky_rel_and_solves_match_jax():
+    k = _spd(20, seed=9, batch=2) * 50.0
+    got = ops.safe_cholesky_rel(torch.as_tensor(k), 1e-6)
+    want = np.stack([np.asarray(jops.safe_cholesky_rel(jnp.asarray(ki), 1e-6)) for ki in k])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    b = np.random.default_rng(5).normal(size=(2, 20, 3))
+    x = ops.cho_solve(got, torch.as_tensor(b))
+    x_j = np.stack([np.asarray(jops.cho_solve(jnp.asarray(want[i]), jnp.asarray(b[i])))
+                    for i in range(2)])
+    np.testing.assert_allclose(x.numpy(), x_j, rtol=1e-10, atol=1e-12)
+    y = ops.tri_solve_lower(got, torch.as_tensor(b))
+    np.testing.assert_allclose((got @ y).numpy(), b, atol=1e-10)
+    np.testing.assert_allclose(
+        ops.logdet_from_chol(got).numpy(),
+        [float(jops.logdet_from_chol(jnp.asarray(w))) for w in want], rtol=1e-12)
+    np.testing.assert_allclose(
+        ops.add_jitter(torch.zeros(5, 5, dtype=torch.float64), 2e-6).numpy(), 2e-6 * np.eye(5))
+
+
+def test_cholesky_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        chol.cholesky(torch.zeros(3, 4))
+    with pytest.raises(TypeError):
+        chol.cholesky(torch.zeros(3, 3, dtype=torch.float16))
+

@@ -1,0 +1,195 @@
+"""Stacked two-phase training: the port's trainer against
+mobocmf_tpu.fit.trainer.train_phase_stacked_chunked at f64.
+
+The JAX trainer draws its propagation eps (and minibatch permutations)
+from a key chain: fold_in(key, chunk) split over models (trainer.py:494),
+split over epochs (:243), then split again per epoch (:203-204 full batch,
+:213 minibatch). The test re-derives those draws with jax.random and hands
+them to the port, so both run the same trajectory.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobocmf_tpu.fit import fitter as jfitter
+from mobocmf_tpu.fit import trainer as jtrainer
+from mobocmf_tpu.models import mfdgp as JM
+from mobocmf_tpu_torch.fit import bucketing, fitter, trainer
+from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.models.convert import model_from_numpy, model_to_numpy
+from mobocmf_tpu_torch.util.tree import tree_leaves
+
+F64 = torch.float64
+
+
+def _problem(n_real=14, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_real, 2))
+    fid = (np.arange(n_real) % 2).astype(np.int32)
+    ys = np.stack([
+        np.sin(5 * x[:, 0]) + x[:, 1] + 0.2 * fid,
+        np.cos(3 * x[:, 1]) * x[:, 0] - 0.1 * fid,
+        0.25 - np.sum((x - 0.5) ** 2, axis=1),
+    ])
+    return x, ys, fid
+
+
+def _padded(x, ys, fid):
+    target = bucketing.next_bucket(x.shape[0])
+    xp, fp, w = bucketing.pad_inputs_np(x, fid, target)
+    ysp = np.stack([bucketing.pad_rows_np(y, target) for y in ys])
+    return xp, ysp, fp, w
+
+
+def _jax_stack(x, ys, fid):
+    models = [
+        JM.init_mfdgp(jax.random.key(i), jnp.asarray(x), jnp.asarray(y)[:, None],
+                      jnp.asarray(fid), 2)
+        for i, y in enumerate(ys)
+    ]
+    return jtrainer.stack_models(models)
+
+
+def _port_model(sp, sc, config):
+    return model_from_numpy(
+        jax.tree.map(np.asarray, sp), jax.tree.map(np.asarray, sc), config._asdict(), "cpu", F64
+    )
+
+
+def _jax_draws(key, num_models, num_epochs, n, nf, perm=False, padded=None):
+    """The eps (and permutations) train_phase_stacked_chunked draws for one
+    chunk (num_epochs <= the chunk size)."""
+    keys = jax.random.split(jax.random.fold_in(key, 0), num_models)
+    eps, perms = [], []
+    for km in keys:
+        e_m, p_m = [], []
+        for ke in jax.random.split(km, num_epochs):
+            kperm, keps = jax.random.split(ke)
+            e_m.append(np.asarray(jax.random.normal(keps, (nf, padded or n), dtype=jnp.float64)))
+            if perm:
+                p_m.append(np.asarray(jax.random.permutation(kperm, n)))
+        eps.append(e_m)
+        perms.append(p_m)
+    eps = torch.as_tensor(np.array(eps)).transpose(0, 1).contiguous()
+    perms = torch.as_tensor(np.array(perms)).transpose(0, 1).contiguous() if perm else None
+    return eps, perms
+
+
+def _assert_params_close(port_params, jax_params, rtol, atol):
+    jl = jax.tree.leaves(jax.tree.map(np.asarray, jax_params))
+    pl = tree_leaves(port_params)
+    assert len(jl) == len(pl)
+    for a, b in zip(jl, pl):
+        np.testing.assert_allclose(b.numpy(), a, rtol=rtol, atol=atol)
+
+
+def test_two_phase_stacked_training_matches_jax():
+    """3 blackboxes, padded to the 16 bucket, 20 + 20 full-batch epochs.
+
+    Losses and params at rtol 1e-7; the params' atol 1e-9 covers entries
+    that Adam moves from (near) zero, where a relative bound means nothing."""
+    x, ys, fid = _problem()
+    xp, ysp, fp, w = _padded(x, ys, fid)
+    sp, sc, config = _jax_stack(xp, ysp, fp)
+    pm = _port_model(sp, sc, config)
+    n, nm, epochs = xp.shape[0], 3, 20
+    num_data = float(x.shape[0])
+    xj, ysj, fj, wj = (jnp.asarray(a) for a in (xp, ysp, fp, w))
+    xt, yst, ft, wt = (torch.as_tensor(a) for a in (xp, ysp, fp, w))
+
+    for phase, (lr, kind) in enumerate([(0.003, "fix_variational_hypers"), (0.001, "all_free")]):
+        key = jax.random.key(100 + phase)
+        sp, logs_j = jtrainer.train_phase_stacked_chunked(
+            sp, sc, config, xj, ysj, fj, key, nm, epochs, lr, kind, n, wj,
+            jnp.asarray(num_data),
+        )
+        eps, _ = _jax_draws(key, nm, epochs, n, 1)
+        params, logs_p = trainer.train_phase_stacked(
+            pm, xt, yst, ft, epochs, lr, kind, n, wt, torch.tensor(num_data, dtype=F64), eps=eps,
+        )
+        pm = pm._replace(params=params)
+        np.testing.assert_allclose(logs_p.loss.numpy(), np.asarray(logs_j.loss), rtol=1e-7)
+        np.testing.assert_allclose(logs_p.kl.numpy(), np.asarray(logs_j.kl), rtol=1e-7)
+        _assert_params_close(pm.params, sp, rtol=1e-7, atol=1e-9)
+    # phase 1 froze the variational Cholesky and the noises
+    assert float(logs_p.loss[:, -1].sum()) < float(logs_p.loss[:, 0].sum())
+
+
+def test_minibatch_training_matches_jax():
+    """One phase on 3 minibatches (the last one padded), permutations and
+    eps from the JAX key chain."""
+    x, ys, fid = _problem(n_real=16, seed=1)
+    sp, sc, config = _jax_stack(x, ys, fid)
+    pm = _port_model(sp, sc, config)
+    n, nm, epochs, bsz = x.shape[0], 3, 4, 6
+    key = jax.random.key(7)
+    sp, logs_j = jtrainer.train_phase_stacked_chunked(
+        sp, sc, config, jnp.asarray(x), jnp.asarray(ys), jnp.asarray(fid), key, nm, epochs,
+        0.003, "all_free", bsz,
+    )
+    eps, perms = _jax_draws(key, nm, epochs, n, 1, perm=True, padded=18)
+    params, logs_p = trainer.train_phase_stacked(
+        pm, torch.as_tensor(x), torch.as_tensor(ys), torch.as_tensor(fid), epochs, 0.003,
+        "all_free", bsz, eps=eps, perms=perms,
+    )
+    np.testing.assert_allclose(logs_p.loss.numpy(), np.asarray(logs_j.loss), rtol=1e-7)
+    _assert_params_close(params, sp, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize("kind", ["fix_variational_hypers", "all_free", "fix_cond"])
+def test_masks_match_jax(kind):
+    x, ys, fid = _problem()
+    jm = JM.init_mfdgp(jax.random.key(0), jnp.asarray(x), jnp.asarray(ys[0])[:, None],
+                       jnp.asarray(fid), 2, init_params_to_prior_and_fix_them=True)
+    pm = model_from_numpy(jax.tree.map(np.asarray, jm.params), jax.tree.map(np.asarray, jm.consts),
+                          jm.config._asdict(), "cpu", F64)
+    jmask = jax.tree.leaves(jtrainer.build_mask(jm.params, kind, jm.config))
+    pmask = tree_leaves(trainer.build_mask(pm.params, kind, pm.config))
+    assert [float(np.asarray(a).reshape(-1)[0]) for a in jmask] == pmask
+
+
+def test_fitter_end_to_end_with_padding():
+    """The port's fitter: same padded init as the JAX fitter, finite
+    training, per-model access, snapshot, acquisition predictive."""
+    x, ys, fid = _problem(n_real=13, seed=2)
+    kw = dict(num_fidelities=2, batch_size=100, num_epochs_1=8, num_epochs_2=8, pad_data=True)
+    jf = jfitter.BlackBoxMFDGPFitter(**kw)
+    pf = fitter.BlackBoxMFDGPFitter(**kw, device="cpu", dtype=F64)
+    names = [("branin", False), ("currin", False), ("disk", True)]
+    for (name, is_con), y in zip(names, ys):
+        jf.initialize_mfdgp(x, y, fid, name, is_constraint=is_con, threshold_constraint=0.0)
+        pf.initialize_mfdgp(x, y, fid, name, is_constraint=is_con, threshold_constraint=0.0)
+    assert pf.x_train.shape == (16, 2) and pf.num_real == 13
+    np.testing.assert_array_equal(pf.row_weights.numpy(), np.asarray(jf.row_weights))
+    for name, is_con in names:
+        jm, pm = jf.get_model(name, is_con), pf.get_model(name, is_con)
+        params, _, config = model_to_numpy(pm)
+        assert config == jm.config._asdict()
+        for a, b in zip(jax.tree.leaves(jax.tree.map(np.asarray, jm.params)), tree_leaves(params)):
+            np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-12)
+
+    before = pf.copy_uncond()
+    pf.train_mfdgps()
+    assert pf.models_uncond_trained and not before.models_uncond_trained
+    assert [s["phase"] for s in pf.phase_stats] == [1, 2]
+    assert all(np.isfinite(s["last"]) for s in pf.phase_stats)
+    assert pf.phase_stats[-1]["last"] < pf.phase_stats[0]["first"]
+    # the snapshot still holds the untrained models
+    assert not torch.equal(before.get_model("branin").params.raw_noises,
+                           pf.get_model("branin").params.raw_noises)
+    stacked = trainer.stack_models([pf.get_model(n, c) for n, c in names])
+    grid = torch.as_tensor(np.random.default_rng(0).uniform(size=(9, 2)))
+    mus, var = M.predict_for_acquisition_all(stacked.params, stacked.consts, stacked.config, grid)
+    assert mus.shape == (3, 2, 9)
+    assert bool(torch.isfinite(mus).all()) and bool((var > 0).all())
+
+
+def test_fitter_rejects_mismatched_inputs():
+    x, ys, fid = _problem()
+    pf = fitter.BlackBoxMFDGPFitter(2, 100, device="cpu", dtype=F64)
+    pf.initialize_mfdgp(x, ys[0], fid, "a")
+    with pytest.raises(ValueError):
+        pf.initialize_mfdgp(x + 1.0, ys[1], fid, "b")
