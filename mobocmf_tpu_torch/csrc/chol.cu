@@ -19,29 +19,41 @@
 // which is the failure signal safe_cholesky reads. The kernel never traps.
 // The strict upper triangle of the output is zeroed.
 //
-// Design: one thread block per matrix, the working factor in the output
-// buffer in global memory (L2-resident at these sizes: a 512x512 f32
-// matrix is 1 MB), right-looking with 32-wide column panels:
-//   1. the 32x32 diagonal block is factorized in shared memory;
-//   2. each thread solves rows of the panel below it against that block
-//      (x L11^T = a, forward substitution in registers);
-//   3. the trailing lower triangle is downdated tile by tile: two 64x32
-//      panel slices staged in shared memory, a 4x4 register micro-tile per
-//      thread, FMA in the working type (no tensor cores, so no TF32).
+// Design: a cluster of CLUSTER thread blocks per matrix (Hopper thread
+// block clusters; cluster.sync() between the phases of a step), the
+// working factor in the output buffer in global memory (L2-resident at
+// these sizes: a 512x512 f32 matrix is 1 MB), right-looking with 32-wide
+// column panels:
+//   1. every block of the cluster loads the 32x32 diagonal block and one
+//      warp factorizes it in registers (one row per lane, shuffles for the
+//      column broadcasts). The blocks compute bit-identical factors, so
+//      they agree on a failed pivot without communicating;
+//   2. the panel rows below it are split over the cluster; each thread
+//      solves its rows against the block (x L11^T = a) in registers;
+//   3. the 64x64 tiles of the trailing lower triangle are split over the
+//      cluster: two 64x32 panel slices staged in shared memory, a 4x4
+//      register micro-tile per thread, FMA in the working type (no tensor
+//      cores, so no TF32).
+// Reads of the working factor bypass L1 (__ldcg): other SMs of the cluster
+// write it between two cluster.sync() calls.
 // Bound: n^3/3 flops per matrix against n^2 words read and written — the
-// work is compute-bound at any n >= 128 on this card, and a single block
-// per matrix caps it at B of the 132 SMs. Spreading a matrix over a
-// cluster of blocks, and wgmma/TMA tiles, are later work.
+// work is compute-bound at any n >= 512 on this card; one cluster per
+// matrix caps it at 8*B of the 132 SMs. wgmma/TMA tiles are later work.
 
 #include <cfloat>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NB = 32;       // panel width
+constexpr int NB = 32;       // panel width = warp width
 constexpr int TILE = 64;     // trailing-update tile edge
 constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each per tile
+constexpr int CLUSTER = 8;   // blocks per matrix (the portable cluster size)
+constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T>
 struct Num;
@@ -72,60 +84,85 @@ __device__ __forceinline__ T tmax(T a, T b) {
   return a > b ? a : b;
 }
 
-// One attempt: factorize the lower triangle held in L (A + jitter*I already
-// loaded). Returns false early, on a failed pivot, when `last` is false.
+__device__ __forceinline__ void cluster_sync(cg::cluster_group& cluster) {
+  __threadfence();
+  cluster.sync();
+}
+
+// Factorize the nb x nb diagonal block held in D in place, with warp 0:
+// lane i holds row i. Returns (in every thread) whether a pivot failed.
 template <typename T>
-__device__ __forceinline__ bool factor(T* L, int n, bool last, T (*D)[NB + 1], T (*PA)[NB + 1],
-                       T (*PB)[NB + 1], int* failed) {
+__device__ __forceinline__ bool factor_diag_block(T (*D)[NB + 1], int nb, int* failed) {
   const int tid = threadIdx.x;
+  if (tid < NB) {
+    const int i = tid;
+    T r[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) r[j] = (i < nb && j <= i) ? D[i][j] : T(0);
+    bool bad = false;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      if (k < nb) {
+        T d = __shfl_sync(FULL, r[k], k);
+        if (!(d > T(0) && d <= Num<T>::big)) {  // <= 0, NaN or inf
+          d = Num<T>::nan();
+          bad = true;
+        }
+        const T piv = Num<T>::root(d);
+        if (i == k) r[k] = piv;
+        if (i > k) r[k] = r[k] / piv;
+#pragma unroll
+        for (int j = k + 1; j < NB; ++j) {
+          const T ljk = __shfl_sync(FULL, r[k], j);
+          if (j <= i) r[j] -= r[k] * ljk;
+        }
+      }
+    }
+    if (i < nb) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j <= i) D[i][j] = r[j];
+    }
+    if (i == 0) *failed = bad ? 1 : 0;
+  }
+  __syncthreads();
+  return *failed != 0;
+}
+
+// One attempt on the lower triangle held in L (A + jitter*I already
+// loaded). Returns false early, on a failed pivot, when `last` is false.
+// The same in every block of the cluster.
+template <typename T>
+__device__ __forceinline__ bool factor(T* L, int n, bool last, cg::cluster_group& cluster,
+                                       T (*D)[NB + 1], T (*PA)[NB + 1], T (*PB)[NB + 1],
+                                       int* failed) {
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tx = tid % 16, ty = tid / 16;
+  bool any_failed = false;
   for (int k0 = 0; k0 < n; k0 += NB) {
     const int nb = min(NB, n - k0);
 
-    // 1. diagonal block: load, factorize in shared memory, store
+    // 1. diagonal block
     for (int e = tid; e < NB * NB; e += THREADS) {
       const int i = e / NB, j = e % NB;
-      if (i < nb && j <= i) D[i][j] = L[(size_t)(k0 + i) * n + k0 + j];
+      if (i < nb && j <= i) D[i][j] = __ldcg(L + (size_t)(k0 + i) * n + k0 + j);
     }
     __syncthreads();
-    for (int kk = 0; kk < nb; ++kk) {
-      if (tid == 0) {
-        T d = D[kk][kk];
-        if (!(d > T(0) && d <= Num<T>::big)) {  // <= 0, NaN or inf
-          d = Num<T>::nan();
-          *failed = 1;
-        }
-        D[kk][kk] = Num<T>::root(d);
-      }
-      __syncthreads();
-      const T piv = D[kk][kk];
-      for (int i = kk + 1 + tid; i < nb; i += THREADS) D[i][kk] /= piv;
-      __syncthreads();
-      const int m = nb - kk - 1;
-      for (int e = tid; e < m * m; e += THREADS) {
-        const int i = kk + 1 + e / m, j = kk + 1 + e % m;
-        if (j <= i) D[i][j] -= D[i][kk] * D[j][kk];
-      }
-      __syncthreads();
-    }
-    if (*failed && !last) return false;  // uniform: read after a barrier
-    for (int e = tid; e < NB * NB; e += THREADS) {
-      const int i = e / NB, j = e % NB;
-      if (i < nb && j <= i) L[(size_t)(k0 + i) * n + k0 + j] = D[i][j];
-    }
-
+    any_failed |= factor_diag_block<T>(D, nb, failed);
+    if (any_failed && !last) return false;  // uniform over the cluster
     const int k1 = k0 + nb;
-    if (k1 >= n) break;  // nb == NB from here on
 
-    // 2. panel rows k1..n-1: solve x L11^T = a row by row. The block is
-    // read through a volatile view: otherwise the compiler hoists its 528
+    // 2. panel rows k1..n-1 (none after the last block; nb == NB before
+    // it), split over the cluster: solve x L11^T = a. The block is read
+    // through a volatile view: otherwise the compiler hoists its 528
     // row-invariant loads out of the row loop and spills them.
     const volatile T(*Dv)[NB + 1] = D;
-    for (int r = k1 + tid; r < n; r += THREADS) {
+    for (int r = k1 + rank * THREADS + tid; r < n; r += CLUSTER * THREADS) {
       T* row = L + (size_t)r * n + k0;
       T x[NB];
 #pragma unroll
-      for (int j = 0; j < NB; ++j) x[j] = row[j];
+      for (int j = 0; j < NB; ++j) x[j] = __ldcg(row + j);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
         T acc = x[j];
@@ -136,18 +173,29 @@ __device__ __forceinline__ bool factor(T* L, int n, bool last, T (*D)[NB + 1], T
 #pragma unroll
       for (int j = 0; j < NB; ++j) row[j] = x[j];
     }
-    __syncthreads();
+    // every block has loaded the diagonal block before rank 0 overwrites it
+    cluster_sync(cluster);
+    if (rank == 0) {
+      for (int e = tid; e < NB * NB; e += THREADS) {
+        const int i = e / NB, j = e % NB;
+        if (i < nb && j <= i) L[(size_t)(k0 + i) * n + k0 + j] = D[i][j];
+      }
+    }
+    if (k1 >= n) break;
 
-    // 3. trailing lower triangle: L22 -= P P^T with P = L[k1:, k0:k0+NB]
+    // 3. trailing lower triangle: L22 -= P P^T with P = L[k1:, k0:k0+NB];
+    // tile t of the row-major list of lower tiles goes to block t % CLUSTER
     const int nt = (n - k1 + TILE - 1) / TILE;
+    int t = 0;
     for (int ti = 0; ti < nt; ++ti) {
-      for (int tj = 0; tj <= ti; ++tj) {
+      for (int tj = 0; tj <= ti; ++tj, ++t) {
+        if (t % CLUSTER != rank) continue;
         const int r0 = k1 + ti * TILE, c0 = k1 + tj * TILE;
         for (int e = tid; e < TILE * NB; e += THREADS) {
           const int i = e / NB, k = e % NB;
           const int r = r0 + i, c = c0 + i;
-          PA[i][k] = r < n ? L[(size_t)r * n + k0 + k] : T(0);
-          PB[i][k] = c < n ? L[(size_t)c * n + k0 + k] : T(0);
+          PA[i][k] = r < n ? __ldcg(L + (size_t)r * n + k0 + k) : T(0);
+          PB[i][k] = c < n ? __ldcg(L + (size_t)c * n + k0 + k) : T(0);
         }
         __syncthreads();
         T acc[4][4];
@@ -174,18 +222,22 @@ __device__ __forceinline__ bool factor(T* L, int n, bool last, T (*D)[NB + 1], T
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int c = c0 + tx + 16 * q;
-            if (r < n && c <= r) L[(size_t)r * n + c] -= acc[p][q];
+            if (r < n && c <= r) {
+              T* dst = L + (size_t)r * n + c;
+              *dst = __ldcg(dst) - acc[p][q];
+            }
           }
         }
         __syncthreads();
       }
     }
+    cluster_sync(cluster);
   }
   return true;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     chol_kernel(const T* __restrict__ a, T* out, const T* __restrict__ jitter,
                 int* __restrict__ level, int n, int ladder) {
   __shared__ T D[NB][NB + 1];
@@ -194,11 +246,14 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ T red[THREADS];
   __shared__ int failed;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mat = blockIdx.x / CLUSTER;
   const int tid = threadIdx.x;
-  const T* A = a + (size_t)blockIdx.x * n * n;
-  T* L = out + (size_t)blockIdx.x * n * n;
+  const T* A = a + (size_t)mat * n * n;
+  T* L = out + (size_t)mat * n * n;
 
-  // scale = mean |diag(A)|
+  // scale = mean |diag(A)| (every block of the cluster, identically)
   T s = T(0);
   for (int i = tid; i < n; i += THREADS) s += Num<T>::absval(A[(size_t)i * n + i]);
   red[tid] = s;
@@ -210,28 +265,26 @@ __global__ void __launch_bounds__(THREADS)
   const T scale = red[0] / T(n);
   const T eps = Num<T>::eps;
 
-  T jit = jitter[blockIdx.x];
+  T jit = jitter[mat];
   if (ladder) jit = tmax(jit, T(4) * eps * scale);
   const int attempts = ladder ? 3 : 1;
   for (int att = 0; att < attempts; ++att) {
     if (att == 1) jit = tmax(T(100) * jit, T(256) * eps * scale);
     if (att == 2) jit = tmax(T(100) * jit, Num<T>::root(eps) * scale);
     const bool last = att == attempts - 1;
-    for (int i = 0; i < n; ++i)
+    cluster_sync(cluster);  // no block still reads the previous attempt
+    for (int i = rank; i < n; i += CLUSTER)
       for (int j = tid; j <= i; j += THREADS)
         L[(size_t)i * n + j] = A[(size_t)i * n + j] + (i == j ? jit : T(0));
-    if (tid == 0) failed = 0;
-    __syncthreads();
-    const bool ok = factor<T>(L, n, last, D, PA, PB, &failed);
-    __syncthreads();
-    if (ok || last) {
-      if (tid == 0) level[blockIdx.x] = att;
+    cluster_sync(cluster);
+    if (factor<T>(L, n, last, cluster, D, PA, PB, &failed) || last) {
+      if (rank == 0 && tid == 0) level[mat] = att;
       break;
     }
   }
 
   // zero the strict upper triangle
-  for (int i = 0; i < n; ++i)
+  for (int i = rank; i < n; i += CLUSTER)
     for (int j = i + 1 + tid; j < n; j += THREADS) L[(size_t)i * n + j] = T(0);
 }
 
@@ -239,8 +292,8 @@ template <typename T>
 int launch(const T* a, T* out, const T* jitter, int* level, int batch, int n, int ladder,
            void* stream) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  chol_kernel<T><<<batch, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, out, jitter,
-                                                                         level, n, ladder);
+  chol_kernel<T><<<batch * CLUSTER, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, out, jitter, level, n, ladder);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -147,7 +147,7 @@ def test_forward_elbo_kl_acquisition_parity(whitened, num_fidelities, seed):
             np.testing.assert_allclose(
                 mp[i].numpy(), np.asarray(mj), rtol=1e-9 * tol, atol=1e-11 * tol)
             np.testing.assert_allclose(
-                vp[i].numpy(), np.asarray(vj), rtol=1e-8 * tol, atol=1e-12 * tol)
+                vp[i].numpy(), np.asarray(vj), rtol=1e-9 * tol, atol=1e-12 * tol)
         elbo_j, skl_j = jax_elbo_terms(p, c, cfg, jnp.asarray(x), jnp.asarray(ys[i]),
                                        jnp.asarray(fid), eps_j[i], n)
         np.testing.assert_allclose(float(elbo_p[i]), float(elbo_j), rtol=1e-9 * tol)
@@ -158,12 +158,12 @@ def test_forward_elbo_kl_acquisition_parity(whitened, num_fidelities, seed):
         np.testing.assert_allclose(
             mus_p[i].numpy(), np.asarray(mus_j), rtol=1e-9 * tol, atol=1e-11 * tol)
         np.testing.assert_allclose(
-            vars_p[i].numpy(), np.asarray(vars_j), rtol=1e-8 * tol, atol=1e-12 * tol)
+            vars_p[i].numpy(), np.asarray(vars_j), rtol=1e-9 * tol, atol=1e-12 * tol)
         mu1_j, var1_j = JM.predict_for_acquisition(p, c, cfg, jnp.asarray(x_acq), 1)
         np.testing.assert_allclose(
             mu1_p[i].numpy(), np.asarray(mu1_j), rtol=1e-9 * tol, atol=1e-11 * tol)
         np.testing.assert_allclose(
-            var1_p[i].numpy(), np.asarray(var1_j), rtol=1e-8 * tol, atol=1e-12 * tol)
+            var1_p[i].numpy(), np.asarray(var1_j), rtol=1e-9 * tol, atol=1e-12 * tol)
 
 
 def test_only_hf_forward_parity():
@@ -176,7 +176,7 @@ def test_only_hf_forward_parity():
                        torch.as_tensor(np.asarray(eps)))
     for (mj, vj), (mp, vp) in zip(outs_j, outs_p):
         np.testing.assert_allclose(mp[0].numpy(), np.asarray(mj), rtol=1e-9, atol=1e-11)
-        np.testing.assert_allclose(vp[0].numpy(), np.asarray(vj), rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(vp[0].numpy(), np.asarray(vj), rtol=1e-9, atol=1e-12)
 
 
 def test_layer_states_with_inverse_match_solves():
@@ -189,7 +189,7 @@ def test_layer_states_with_inverse_match_solves():
     a = M.predict_for_acquisition_all(pm.params, pm.consts, pm.config, xt, states=s0)
     b = M.predict_for_acquisition_all(pm.params, pm.consts, pm.config, xt, states=s1)
     for u, v in zip(a, b):
-        np.testing.assert_allclose(v.numpy(), u.numpy(), rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(v.numpy(), u.numpy(), rtol=1e-9, atol=1e-12)
 
 
 def test_sample_eps_shape_and_noise():
@@ -231,7 +231,7 @@ def test_layer_predictive_kl_and_data_term_match_jax(whitened):
     jmu, jvar, _ = jpred(jgram, jdiag, jlp.kernel, jlp.variational, jz, jnp.asarray(xq),
                          jm.config.jitter, lk=jlk)
     np.testing.assert_allclose(mu[0].numpy(), np.asarray(jmu), rtol=1e-9, atol=1e-11)
-    np.testing.assert_allclose(var[0].numpy(), np.asarray(jvar), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(var[0].numpy(), np.asarray(jvar), rtol=1e-9, atol=1e-12)
     kl = S.kl_divergence(lp.variational, lk, whitened)
     jkl = (JS.kl_divergence_whitened(jlp.variational) if whitened else
            JS.kl_divergence(jgram, jlp.kernel, jlp.variational, jz, jm.config.jitter, lk=jlk))
