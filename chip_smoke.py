@@ -8,16 +8,22 @@
 2. holds K1 (the batched Cholesky) against its plain PyTorch version on the
    card at the main path's shapes and more, f32 and f64, and times the
    kernel, the plain version and torch.linalg.cholesky (the yardstick);
-3. checks the f64 CUDA path against the port's CPU path (which the CPU
-   tests hold against the JAX package) on a small problem;
-4. drives the main path through the entry points a user calls: the
+3. holds K2 (the fused RBF-SVGP predictive) against its plain PyTorch
+   version at the JAX kernel test's problem and at the slice's shapes, f32
+   and f64, and times both (no single PyTorch call computes K2's function);
+4. checks the f64 CUDA path against the port's CPU path (which the CPU
+   tests hold against the JAX package) on a small problem, and the K2
+   route of the acquisition predictive against the plain route at f64;
+5. drives the main path through the entry points a user calls: the
    Branin-Currin-512 configuration (3 blackboxes, 490 points padded to the
    512 bucket, so m = 512 inducing points per layer) through
    BlackBoxMFDGPFitter -> initialize_mfdgp -> train_mfdgps ->
-   predict_for_acquisition_all, then the 128-bucket shape (4 blackboxes,
-   120 points), both f32 on the card, with the kernel counters set to 0
-   just before each run and read just after;
-5. prints the kernel line and, last, {"ok": true, "device": {...}}.
+   JESMOC_MFDGP (Pareto sampling, conditioned training) -> add_blackbox ->
+   get_nextpoint_coupled -> the recommendation pass on a 1000-point grid,
+   then the 128-bucket shape (4 blackboxes, 120 points), both f32 on the
+   card, with the kernel counters set to 0 just before each stage and read
+   just after;
+6. prints the kernel line and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -39,6 +45,7 @@ import torch
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
+COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
 
 
 class CheckFailed(Exception):
@@ -145,8 +152,95 @@ def phase_k1(P) -> dict:
     return records
 
 
+def k2_bound_ms(batch: int, m: int, n: int, d: int, dtype) -> tuple:
+    """Least time for K2 on B states: per state M^3/3 (factor) + M^2 (N+M+1)
+    (one forward substitution) + 2 M^2 N (W_ls^T W) flops; bytes: z, x,
+    mean, ls_chol, lengthscale, outputscale, jitter read once, mu and var
+    written once."""
+    flops = batch * (m**3 / 3.0 + m * m * (n + m + 1) + 2.0 * m * m * n)
+    words = (m + n) * d + batch * (m + m * m + d + 2 + 2 * n)
+    nbytes = words * torch.finfo(dtype).bits / 8
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k2_problem(batch, m, n, d, seed, dtype, dev):
+    """The JAX kernel test's well-posed problem (tests/test_fused_svgp_kernel.py:
+    19-35: lengthscale 0.15, outputscale 1.3, jitter 1e-2), batched."""
+    rng = np.random.default_rng(seed)
+    vals = (
+        rng.uniform(size=(m, d)), rng.uniform(size=(n, d)), rng.normal(size=(batch, m)),
+        np.tril(rng.normal(size=(batch, m, m)) * 0.05) + 0.3 * np.eye(m),
+        np.full((batch, d), 0.15), np.full((batch,), 1.3), np.full((batch,), 1e-2),
+    )
+    return [torch.as_tensor(v, dtype=dtype, device=dev) for v in vals]
+
+
+def phase_k2(P) -> dict:
+    """K2 against its plain version; returns the record of each shape."""
+    K2 = P.fused_svgp
+    dev = torch.device("cuda")
+    shapes = [
+        ("jax-test", torch.float32, 1, 128, 128, 3),
+        ("jax-test", torch.float32, 1, 100, 150, 3),
+        ("b128-screen", torch.float32, 8, 128, 200, 2),
+        ("bc512-screen", torch.float32, 6, 512, 200, 2),
+        ("bc512-recommend", torch.float32, 3, 512, 1000, 2),
+        ("bc512-screen", torch.float64, 6, 512, 200, 2),
+    ]
+    records = {}
+    with torch.no_grad():
+        for label, dtype, b, m, n, d in shapes:
+            args = k2_problem(b, m, n, d, m + n, dtype, dev)
+            mu, var = K2.fused_rbf_svgp_forward(*args)
+            mu_p, var_p = K2.fused_rbf_svgp_forward_plain(*args)
+            torch.cuda.synchronize()
+            err = max((mu - mu_p).abs().max().item(), (var - var_p).abs().max().item())
+            tol = 2e-3 if dtype == torch.float32 else 1e-10
+            close = all(
+                bool(torch.allclose(a, w, rtol=tol, atol=tol)) for a, w in ((mu, mu_p), (var, var_p))
+            )
+            ms = cuda_ms(lambda: K2.fused_rbf_svgp_forward(*args), 20)
+            plain_ms = cuda_ms(lambda: K2.fused_rbf_svgp_forward_plain(*args), 20)
+            bound_ms, bound_by = k2_bound_ms(b, m, n, d, dtype)
+            tag = "f32" if dtype == torch.float32 else "f64"
+            print(
+                f"[k2] {label} {tag} B={b} M={m} N={n} d={d}: max_abs_err={err:.3e} (tol {tol:g}) "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+                "library_ms=none (no single PyTorch call computes K2's function)",
+                flush=True,
+            )
+            check(bool(torch.isfinite(mu).all() and torch.isfinite(var).all()),
+                  f"K2 {label} {tag}: non-finite output")
+            check(bool((var > 0).all()), f"K2 {label} {tag}: non-positive variance")
+            check(close, f"K2 {label} {tag} B={b} M={m} N={n}: differs from plain by {err:.3e}")
+            records[(label, tag, b, m, n)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            )
+        k2_breakdown(K2, k2_problem(6, 512, 200, 2, 712, torch.float32, dev))
+    return records
+
+
+def k2_breakdown(K2, args, calls: int = 10) -> None:
+    """Device time of each of K2's three launches (torch.profiler)."""
+    K2.fused_rbf_svgp_forward(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            K2.fused_rbf_svgp_forward(*args)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and "_kernel" in evt.name:
+            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        print(f"[k2] breakdown bc512-screen f32: {us / calls:.1f} us per call in {name[:90]}",
+              flush=True)
+
+
 def phase_reference(P) -> None:
-    """f64 on the card (K1 f64 + the CUDA path) against the CPU path."""
+    """f64 on the card (K1 f64 + the CUDA path) against the CPU path, and
+    the K2 route of the acquisition predictive against the plain route."""
     trainer, chol, M = P.trainer, P.chol, P.M
     rng = np.random.default_rng(0)
     x = rng.uniform(size=(48, 2))
@@ -175,38 +269,62 @@ def phase_reference(P) -> None:
     check(rel < 1e-8, f"f64 card path differs from the CPU path by {rel:.3e}")
     check(launched >= 2 * 5, "f64 card path did not launch K1")
 
+    # the same trained f64 model on the card: layer 0 through K2 (no grad)
+    # against predict_diag_state (grad enabled, the plain route)
+    xq = torch.as_tensor(x[:9] + 0.01, device="cuda")
+    P.fused_svgp.reset_counts()
+    with torch.no_grad():
+        via_k2 = M.predict_for_acquisition_all(params, model.consts, model.config, xq)
+    k2_calls = P.fused_svgp.launches
+    plain = M.predict_for_acquisition_all(params, model.consts, model.config, xq)
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(via_k2, plain))
+    print(f"[reference] f64 acquisition predictive, K2 route vs plain route: max rel diff "
+          f"{rel:.3e}, K2 launches {k2_calls}", flush=True)
+    check(k2_calls == 1, f"the no-grad predictive launched K2 {k2_calls} times, not once")
+    check(rel < 1e-9, f"the K2 route differs from the plain route by {rel:.3e}")
 
-def run_slice(P, label, blackboxes, n_init, epochs) -> dict:
-    """One fitter run at full width; counters zeroed just before, read just after."""
-    trainer, chol, M = P.trainer, P.chol, P.M
+
+def staged(P, fn):
+    """Run one stage with every kernel counter set to 0 just before it and
+    read just after: (result, seconds, K1 launches, K1 escalations, K2 calls)."""
+    P.chol.reset_counts()
+    P.fused_svgp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, P.chol.launches, P.chol.escalations(), P.fused_svgp.launches
+
+
+def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
+    """One BO iteration's model side at full width: training, then JESMOC
+    (Pareto sampling + conditioned training), the all-fidelity candidate
+    search and the recommendation pass, each stage counted on its own."""
+    trainer, M = P.trainer, P.M
     rng = np.random.default_rng(SEED)
     x = rng.uniform(size=(n_init, 2))
     n_high = n_init // 4
     fid = np.concatenate([np.zeros(n_init - n_high), np.ones(n_high)]).astype(int)
-    ys = [np.where(fid == 0, lo(x), hi(x)) for _, (lo, hi), _ in blackboxes]
-    grid = np.stack(np.meshgrid(np.linspace(0, 1, 16), np.linspace(0, 1, 16)), -1).reshape(-1, 2)
+    # outputs standardized per blackbox, thresholds with them, as run_bo_loop
+    # does (bo/loop.py:158-162, 275-277, 326-327)
+    raw = [np.where(fid == 0, lo(x), hi(x)) for _, (lo, hi), _ in blackboxes]
+    stats = [(float(y.mean()), float(y.std())) for y in raw]
+    ys = [(y - mu) / sd for y, (mu, sd) in zip(raw, stats)]
+    thresholds = [(0.0 - mu) / sd for mu, sd in stats]
 
-    chol.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fitter = P.BlackBoxMFDGPFitter(
-        num_fidelities=2, batch_size=n_init, lr_1=0.003, lr_2=0.001,
-        num_epochs_1=epochs, num_epochs_2=epochs, seed=SEED, pad_data=True,
-    )
-    for (name, _, is_con), y in zip(blackboxes, ys):
-        fitter.initialize_mfdgp(x, y, fid, name, threshold_constraint=0.0, is_constraint=is_con)
-    t_init = time.perf_counter() - t0
-    fitter.train_mfdgps()
-    model = trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes])
-    t1 = time.perf_counter()
-    mus, var = M.predict_for_acquisition_all(
-        model.params, model.consts, model.config,
-        torch.as_tensor(grid, device="cuda", dtype=torch.float32),
-    )
-    torch.cuda.synchronize()
-    t_pred = time.perf_counter() - t1
-    launches, escalations = chol.launches, chol.escalations()
+    def init():
+        fitter = P.BlackBoxMFDGPFitter(
+            num_fidelities=2, batch_size=n_init, lr_1=0.003, lr_2=0.001,
+            num_epochs_1=epochs, num_epochs_2=epochs, seed=SEED, pad_data=True,
+        )
+        for (name, _, is_con), y, thr in zip(blackboxes, ys, thresholds):
+            fitter.initialize_mfdgp(x, y, fid, name, threshold_constraint=thr if is_con else 0.0,
+                                    is_constraint=is_con)
+        return fitter
 
+    fitter, t_init, _, _, _ = staged(P, init)
+    _, t_train, k1_train, esc_train, k2_train = staged(P, fitter.train_mfdgps)
     m = fitter.x_train.shape[0]
     steps = 0
     for st in fitter.phase_stats:
@@ -219,23 +337,85 @@ def run_slice(P, label, blackboxes, n_init, epochs) -> dict:
             flush=True,
         )
         check(np.isfinite(st["last"]), f"{label}: non-finite loss")
-    print(
-        f"[{label}] m={m} blackboxes={len(blackboxes)} init {t_init:.3f} s; "
-        f"predict_for_acquisition_all on {grid.shape[0]} points {t_pred * 1e3:.2f} ms; "
-        f"K1 launches {launches} for {steps} steps; ladder escalations {escalations}",
-        flush=True,
-    )
-    leaves = P.tree_leaves(model.params)
+    print(f"[{label}] m={m} blackboxes={len(blackboxes)} init {t_init:.3f} s; training "
+          f"{t_train:.3f} s, K1 launches {k1_train} for {steps} steps, ladder escalations "
+          f"{esc_train}, K2 launches {k2_train}", flush=True)
+    leaves = P.tree_leaves(trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes]).params)
     check(all(bool(torch.isfinite(t).all()) for t in leaves), f"{label}: non-finite params")
-    check(launches >= 2 * steps, f"{label}: K1 launched {launches} times for {steps} steps")
-    check(tuple(mus.shape) == (len(blackboxes), 2, grid.shape[0]), f"{label}: shape {mus.shape}")
-    check(bool(torch.isfinite(mus).all()) and bool(torch.isfinite(var).all()),
-          f"{label}: non-finite acquisition predictive")
-    check(bool((var > 0).all()), f"{label}: non-positive predictive variance")
-    print(f"[{label}] predict_for_acquisition_all: finite, var > 0 "
-          f"(min {var.min().item():.3e})", flush=True)
-    return dict(launches=launches, steps=steps, m=m,
-                steps_per_s=[st["epochs"] / st["seconds"] for st in fitter.phase_stats])
+    check(k1_train >= 2 * steps, f"{label}: K1 launched {k1_train} times for {steps} steps")
+
+    # Pareto sampling + conditioned training, inside the JESMOC constructor
+    fitter.num_epochs_2 = cond_iters  # the conditioned phase runs num_epochs_2 iterations
+    jes, t_jes, k1_jes, _, k2_jes = staged(P, lambda: P.JESMOC_MFDGP(
+        fitter, num_fidelities=2, seed=SEED, acq_maxiter=200, acq_raw_samples=200))
+    cond = fitter.phase_stats[-1]
+    check(cond["label"] == "COND" and cond["epochs"] == cond_iters, f"{label}: no conditioned phase")
+    t_pareto = t_jes - cond["seconds"]
+    sol = fitter.pareto_solution
+    print(f"[{label}] Pareto sampling: {t_pareto:.3f} s ({fitter.pareto_tries} MOOP attempt(s), "
+          f"{sol.num_valid} valid Pareto points of {sol.pareto_set.shape[0]})", flush=True)
+    print(f"[{label}] conditioned training: {cond_iters} steps in {cond['seconds']:.3f} s = "
+          f"{cond_iters / cond['seconds']:.2f} steps/s; loss first {cond['first']:.6g} last "
+          f"{cond['last']:.6g}; K1 launches {cond['chol_launches']}; ladder escalations "
+          f"{cond['escalations']}", flush=True)
+    check(sol.num_valid >= 1, f"{label}: empty Pareto set")
+    check(np.isfinite(cond["last"]), f"{label}: non-finite conditioned loss")
+    check(cond["chol_launches"] >= 2 * cond_iters,
+          f"{label}: K1 launched {cond['chol_launches']} times on {cond_iters} conditioned steps")
+    check(k2_jes == 0, f"{label}: K2 launched during training stages")
+
+    for f in range(2):
+        for name, _, is_con in blackboxes:
+            jes.add_blackbox(f, name, cost_evaluation=(1.0, 10.0)[f], is_constraint=is_con)
+    (x_next, fid_next), t_acq, k1_acq, _, k2_acq = staged(P, jes.get_nextpoint_coupled)
+    vals = jes.last_values
+    print(f"[{label}] acquisition search (all fidelities, 200 raw samples, 5 restarts each): "
+          f"{t_acq:.3f} s; x={x_next.tolist()} fidelity={fid_next}; values {vals.tolist()}; "
+          f"K1 launches {k1_acq}; K2 launches {k2_acq}", flush=True)
+    check(tuple(x_next.shape) == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all()),
+          f"{label}: candidate {x_next.tolist()} outside [0, 1]^2")
+    check(fid_next in (0, 1), f"{label}: fidelity {fid_next}")
+    check(bool(torch.isfinite(vals).all()) and bool((vals >= 0).all()),
+          f"{label}: acquisition values {vals.tolist()}")
+    check(k2_acq >= 1, f"{label}: the screening did not launch K2")
+
+    objs = [n for n, _, c in blackboxes if not c]
+    cons = [n for n, _, c in blackboxes if c]
+    obj = trainer.stack_models([fitter.get_model(n) for n in objs])
+    con = trainer.stack_models([fitter.get_model(n, True) for n in cons])
+    grid = torch.as_tensor(np.random.default_rng(SEED).uniform(size=(1000, 2)),
+                           dtype=torch.float32, device="cuda")
+    scale = torch.tensor([st for st, (_, _, c) in zip(stats, blackboxes) if not c], device="cuda")
+    thr = torch.tensor([t for t, (_, _, c) in zip(thresholds, blackboxes) if c], device="cuda")
+    (means, feasible, mask), t_rec, _, _, k2_rec = staged(P, lambda: P.recommendation_model_pass(
+        obj.params, obj.consts, con.params, con.consts, obj.config, 1, grid, thr, scale, 0.999))
+    print(f"[{label}] recommendation pass on {grid.shape[0]} points: {t_rec:.3f} s; "
+          f"{int(feasible.sum())} feasible, {int(mask.sum())} on the front; K2 launches {k2_rec}",
+          flush=True)
+    check(tuple(means.shape) == (len(objs), 1000) and bool(torch.isfinite(means).all()),
+          f"{label}: recommendation means")
+    check(not bool((mask & ~feasible).any()), f"{label}: an infeasible point on the front")
+    check(k2_rec >= 1, f"{label}: the recommendation pass did not launch K2")
+    # the same means from the f64 copy of the models (plain route): the f32
+    # error of the K2 route and of the plain route (gradients on, no K2)
+    stacked = trainer.stack_models([obj, con])
+    p64 = P.tree_map(lambda t: t.double(), stacked.params)
+    c64 = P.tree_map(lambda t: t.double(), stacked.consts)
+    mu64, _ = M.predict_for_acquisition(p64, c64, stacked.config, grid.double(), 1)
+    mu_plain, _ = M.predict_for_acquisition(stacked.params, stacked.consts, stacked.config, grid, 1)
+    unscale = scale.double()
+    ref = mu64[: len(objs)].detach() * unscale[:, 1:2] + unscale[:, 0:1]
+    plain = mu_plain[: len(objs)].detach().double() * unscale[:, 1:2] + unscale[:, 0:1]
+    err_k2 = ((means.double() - ref).abs().max() / ref.abs().max()).item()
+    err_plain = ((plain - ref).abs().max() / ref.abs().max()).item()
+    print(f"[{label}] recommendation means against the f64 models: max rel err K2 route "
+          f"{err_k2:.3e}, plain route {err_plain:.3e} (f32 conditioning of the states)", flush=True)
+    return dict(
+        m=m, steps=steps, k1_train=k1_train, k1_slice=k1_jes + k1_acq, k2_acq=k2_acq,
+        k2_rec=k2_rec, t_pareto=t_pareto, t_cond=cond["seconds"], cond_iters=cond_iters,
+        t_acq=t_acq, t_rec=t_rec,
+        steps_per_s=[st["epochs"] / st["seconds"] for st in fitter.phase_stats],
+    )
 
 
 def card_name_and_power_limit() -> str:
@@ -256,11 +436,13 @@ def main() -> int:
         return 2
     try:
         from mobocmf_tpu_torch import BlackBoxMFDGPFitter, _build
+        from mobocmf_tpu_torch.acquisition.jesmoc import JESMOC_MFDGP
+        from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
         from mobocmf_tpu_torch.fit import trainer
-        from mobocmf_tpu_torch.linalg import chol
+        from mobocmf_tpu_torch.linalg import chol, fused_svgp
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.test_functions import synthetic as S
-        from mobocmf_tpu_torch.util.tree import tree_leaves
+        from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repo ({exc})", file=sys.stderr)
         return 2
@@ -279,8 +461,12 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}", flush=True)
 
         P = SimpleNamespace(BlackBoxMFDGPFitter=BlackBoxMFDGPFitter, trainer=trainer,
-                            chol=chol, M=M, tree_leaves=tree_leaves)
+                            chol=chol, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
+                            tree_map=tree_map,
+                            JESMOC_MFDGP=JESMOC_MFDGP,
+                            recommendation_model_pass=recommendation_model_pass)
         k1 = phase_k1(P)
+        k2 = phase_k2(P)
         phase_reference(P)
 
         bc512 = [
@@ -288,31 +474,52 @@ def main() -> int:
             ("currin", (S.currin_low, S.currin), False),
             ("disk", (S.disk_constraint, S.disk_constraint), True),
         ]
-        run_a = run_slice(P, "bc512", bc512, 490, 100)
+        run_a = run_slice(P, "bc512", bc512, 490, 100, COND_ITERS)
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
-        run_b = run_slice(P, "b128", bench128, 120, 50)
+        run_b = run_slice(P, "b128", bench128, 120, 50, COND_ITERS)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    main_rec = k1[("f32", 3, 512)]
-    print(f"[summary] bc512 K1 launches {run_a['launches']} for {run_a['steps']} steps; "
-          f"b128 K1 launches {run_b['launches']} for {run_b['steps']} steps", flush=True)
+    k1_rec = k1[("f32", 3, 512)]
+    k2_rec = k2[("bc512-screen", "f32", 6, 512, 200)]
+    for name, r in (("bc512", run_a), ("b128", run_b)):
+        print(f"[summary] {name}: K1 launches {r['k1_train']} for {r['steps']} training steps, "
+              f"{r['k1_slice']} in Pareto sampling + conditioned training + acquisition; "
+              f"K2 launches {r['k2_acq']} (screening) + {r['k2_rec']} (recommendation); "
+              f"stages: Pareto {r['t_pareto']:.3f} s, conditioned "
+              f"{r['cond_iters'] / r['t_cond']:.2f} steps/s, acquisition {r['t_acq']:.3f} s, "
+              f"recommendation {r['t_rec']:.3f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "chol",
-        "route": "cuda",
-        "source": "mobocmf_tpu_torch/csrc/chol.cu",
-        "replaces": "mobocmf_tpu/linalg/chol.py:61",
-        "launches": run_a["launches"],
-        "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "chol",
+            "route": "cuda",
+            "source": "mobocmf_tpu_torch/csrc/chol.cu",
+            "replaces": "mobocmf_tpu/linalg/chol.py:61",
+            "launches": run_a["k1_train"] + run_a["k1_slice"],
+            "max_abs_err": k1_rec["max_abs_err"],
+            "ms": k1_rec["ms"],
+            "plain_ms": k1_rec["plain_ms"],
+            "bound_ms": k1_rec["bound_ms"],
+            "bound_by": k1_rec["bound_by"],
+            "library_ms": k1_rec["library_ms"],
+        },
+        {
+            "name": "fused_svgp",
+            "route": "cuda",
+            "source": "mobocmf_tpu_torch/csrc/fused_svgp.cu",
+            "replaces": "mobocmf_tpu/linalg/fused_svgp.py:100",
+            "launches": run_a["k2_acq"] + run_a["k2_rec"],
+            "max_abs_err": k2_rec["max_abs_err"],
+            "ms": k2_rec["ms"],
+            "plain_ms": k2_rec["plain_ms"],
+            "bound_ms": k2_rec["bound_ms"],
+            "bound_by": k2_rec["bound_by"],
+            "library_ms": None,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

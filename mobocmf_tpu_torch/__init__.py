@@ -2,12 +2,16 @@
 
 The JAX package `mobocmf_tpu` is the reference; this package mirrors its
 module layout (core/, kernels/, linalg/, models/, mlls/, fit/,
-test_functions/) so each module's counterpart is found by name. It imports
-torch, numpy and scipy only — never jax, and nothing of `mobocmf_tpu`.
+test_functions/, sampling/, moop/, acquisition/, bo/) so each module's
+counterpart is found by name. It imports torch, numpy and scipy only —
+never jax, and nothing of `mobocmf_tpu`.
 
-Ported so far: the MFDGP model and its ELBO, and two-phase stacked training
-through `BlackBoxMFDGPFitter`, with the blocked Cholesky as a hand-written
-CUDA kernel (`linalg/chol.py`, `csrc/chol.cu`).
+Ported so far: the MFDGP model and its ELBO, two-phase stacked training
+through `BlackBoxMFDGPFitter`, RFF Pareto sampling (MOOP), conditioned
+training, the JESMOC all-fidelity candidate search (`JESMOC_MFDGP`) and the
+recommendation pass, with two hand-written CUDA kernels: the blocked
+Cholesky (K1, `linalg/chol.py`, `csrc/chol.cu`) and the fused RBF-SVGP
+predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU and no device named they raise (core/device.py).

@@ -19,6 +19,11 @@ NUM_SAMPLES_FOR_ACQUISITION = 25
 # Variance floor for predictive variances (numerical safety only).
 MIN_VARIANCE = 1e-12
 
+# RFF pathwise sampling: features per block and the weight-posterior
+# regularizer (reference mfdgp_hidden_layer.py:288-307).
+RFF_NUM_FEATURES = 500
+RFF_SIGMA2 = 1e-6
+
 
 def default_jitter(dtype: torch.dtype) -> float:
     if dtype == torch.float64:

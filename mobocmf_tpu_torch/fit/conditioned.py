@@ -1,0 +1,309 @@
+"""Pareto-conditioned MFDGP retraining (JES theta / omega factors)
+(counterpart of mobocmf_tpu/fit/conditioned.py).
+
+After a Pareto solution (set X*, front F*) is sampled, every objective and
+constraint model is retrained jointly (one Adam over the variational
+parameters; kernel hyperparameters and noises frozen, mask "fix_cond") on
+
+    sum_obj [ -ELBO_o * N/B  - data_term(X* -> F*_o at top fidelity, no KL) ]
+  + sum_con [ -ELBO_c * N/B  - theta_c(X*) ]
+  - omega(x_tilde)
+
+with 10 fresh uniform x_tilde points per iteration (reference :277) and
+
+    theta_c = sum_p log[ (1-eps)^Phi(g) * eps^(1-Phi(g)) ],
+              g = (mu_c(x*_p) - t_c) / sd_c(x*_p)                    (:227-233)
+    omega   = sum_{p,j} log[ eps^q * (1-eps)^(1-q) ],
+              q = prod_c Phi(g_c(x_j)) * prod_k Phi(g*_{p,k}(x_j)),
+              g*_{p,k} = (F*_{p,k} - mu_k(x_j)) / sd_k(x_j)           (:235-243)
+
+The loss is the JAX package's fused single-forward form: objective and
+constraint models are stacked on one blackbox dim, their inducing chains
+factored once per step (one K1 launch per layer for all of them), and one
+forward evaluates the rows [batch; X*; x_tilde]. Padded Pareto rows are
+masked out of the sums. Per step the randomness is the minibatch (when it
+is smaller than the data), x_tilde and the propagation normals; all come
+from a torch.Generator or are injected (`StepDraws`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from mobocmf_tpu_torch.fit import trainer
+from mobocmf_tpu_torch.mlls.elbo import _data_term, gaussian_expected_log_prob
+from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+
+NUM_OMEGA_POINTS = 10  # reference :277
+
+
+def loss_theta_factors(cs_mean, cs_var, threshold, eps: float, mask) -> torch.Tensor:
+    """Reference :227-233, masked over padded Pareto rows; summed over the
+    last dim (one value per leading index)."""
+    gamma = (cs_mean - threshold) / torch.sqrt(cs_var)
+    cdf = torch.special.ndtr(gamma)
+    per_point = math.log(1.0 - eps) * cdf + math.log(eps) * (1.0 - cdf)
+    return torch.sum(torch.where(mask, per_point, torch.zeros_like(per_point)), dim=-1)
+
+
+def loss_omega_factors(
+    fs_mean: torch.Tensor,  # (K, J) objective means at x_tilde
+    fs_var: torch.Tensor,
+    cs_mean: torch.Tensor,  # (C, J)
+    cs_var: torch.Tensor,
+    thresholds: torch.Tensor,  # (C,)
+    pareto_front: torch.Tensor,  # (P, K)
+    front_mask: torch.Tensor,  # (P,)
+    eps: float,
+) -> torch.Tensor:
+    """Reference :235-243, masked over padded Pareto rows."""
+    gamma_c = (cs_mean - thresholds[:, None]) / torch.sqrt(cs_var)  # (C, J)
+    gamma_f = (pareto_front[:, :, None] - fs_mean[None]) / torch.sqrt(fs_var[None])  # (P, K, J)
+    prob_feas = torch.prod(torch.special.ndtr(gamma_c), dim=0)  # (J,)
+    prob_dom = torch.prod(torch.special.ndtr(gamma_f), dim=1)  # (P, J)
+    q = prob_feas[None, :] * prob_dom
+    per = math.log(eps) * q + math.log(1.0 - eps) * (1.0 - q)
+    return torch.sum(torch.where(front_mask[:, None], per, torch.zeros_like(per)))
+
+
+class ConditionedData(NamedTuple):
+    x: torch.Tensor  # (N, d)
+    ys_obj: torch.Tensor  # (O, N)
+    ys_con: torch.Tensor  # (C, N)
+    fidelities: torch.Tensor  # (N,)
+    pareto_set: torch.Tensor  # (P, d)
+    pareto_front: torch.Tensor  # (P, O)
+    front_mask: torch.Tensor  # (P,) bool
+    thresholds: torch.Tensor  # (C,)
+    row_weights: Optional[torch.Tensor] = None  # (N,) 1 real / 0 padded rows
+
+
+class StepDraws(NamedTuple):
+    """One step's randomness: minibatch rows (None = the whole data),
+    x_tilde (10, d), propagation normals (O+C, F-1, b+P+10) for the rows
+    [batch; X*; x_tilde]."""
+
+    batch_idx: Optional[torch.Tensor]
+    x_tilde: torch.Tensor
+    eps: torch.Tensor
+
+
+def _stack(obj_params, con_params, obj_consts, con_consts):
+    params = tree_map(lambda a, b: torch.cat([a, b], dim=0), obj_params, con_params)
+    consts = obj_consts._replace(
+        acq_eps=torch.cat([obj_consts.acq_eps, con_consts.acq_eps]),
+        noise_lower=torch.cat([obj_consts.noise_lower, con_consts.noise_lower]),
+        noise_upper=torch.cat([obj_consts.noise_upper, con_consts.noise_upper]),
+    )
+    return params, consts
+
+
+def _loss_stacked(
+    params: M.MFDGPParams,
+    consts: M.MFDGPConsts,
+    config: M.MFDGPConfig,
+    data: ConditionedData,
+    eps_const: float,
+    batch_idx: torch.Tensor,
+    batch_w: torch.Tensor,
+    x_tilde: torch.Tensor,
+    eps: torch.Tensor,
+) -> torch.Tensor:
+    """The conditioned loss of O objectives followed by C constraints,
+    stacked on one blackbox dim (O = rows of data.ys_obj)."""
+    num_obj = data.ys_obj.shape[0]
+    b = batch_idx.shape[0]
+    p = data.pareto_set.shape[0]
+    top = config.num_fidelities - 1
+    n_real = data.x.shape[0] if data.row_weights is None else torch.sum(data.row_weights)
+    ys = torch.cat([data.ys_obj, data.ys_con], dim=0)
+
+    states = trainer.states_stacked(params, consts, config)
+    x_cat = torch.cat([data.x[batch_idx], data.pareto_set, x_tilde], dim=0)
+    outs = M.forward(params, consts, config, x_cat, eps, states=states)
+
+    # minibatch ELBO of every model, rescaled to the real data size; the
+    # divisor is clamped so an all-padded minibatch contributes exactly 0
+    outs_b = [(mu[:, :b], var[:, :b]) for mu, var in outs]
+    data_b = _data_term(params, consts, config, outs_b, ys[:, batch_idx],
+                        data.fidelities[batch_idx], batch_w)
+    kl = M.kl_all_layers(params, consts, config, states=states)
+    elbo = data_b - kl * torch.sum(batch_w) / n_real
+    losses = -elbo / torch.clamp(torch.sum(batch_w), min=1.0) * n_real
+
+    mu_top, var_top = outs[top]
+    mu_p, var_p = mu_top[:, b : b + p], var_top[:, b : b + p]
+    noise = M.likelihood_noise(params, consts, top)[:num_obj]
+    ll = gaussian_expected_log_prob(
+        data.pareto_front.mT, mu_p[:num_obj], var_p[:num_obj], noise[:, None]
+    )
+    front_w = data.front_mask.to(ll.dtype)
+    obj_terms = losses[:num_obj] - torch.sum(ll * front_w, dim=-1)
+    theta = loss_theta_factors(
+        mu_p[num_obj:], var_p[num_obj:], data.thresholds[:, None], eps_const, data.front_mask
+    )
+    con_terms = losses[num_obj:] - theta
+    omega = loss_omega_factors(
+        mu_top[:num_obj, b + p :], var_top[:num_obj, b + p :],
+        mu_top[num_obj:, b + p :], var_top[num_obj:, b + p :],
+        data.thresholds, data.pareto_front, data.front_mask, eps_const,
+    )
+    return torch.sum(obj_terms) + torch.sum(con_terms) - omega
+
+
+def conditioned_loss(
+    obj_params: M.MFDGPParams,  # stacked (O, ...)
+    con_params: M.MFDGPParams,  # stacked (C, ...), C may be 0
+    obj_consts: M.MFDGPConsts,
+    con_consts: M.MFDGPConsts,
+    config: M.MFDGPConfig,
+    data: ConditionedData,
+    eps_const: float,
+    batch_idx: torch.Tensor,
+    batch_w: torch.Tensor,
+    x_tilde: torch.Tensor,
+    eps_o: torch.Tensor,  # (O, F-1, b+P+10)
+    eps_c: torch.Tensor,  # (C, F-1, b+P+10)
+) -> torch.Tensor:
+    """Fused single-forward conditioned loss (the JAX package's default,
+    fused=True) with the draws given: x_tilde (10, d) and each model's
+    normals for the rows [batch; X*; x_tilde]."""
+    params, consts = _stack(obj_params, con_params, obj_consts, con_consts)
+    eps = torch.cat([eps_o, eps_c], dim=0)
+    return _loss_stacked(params, consts, config, data, eps_const, batch_idx, batch_w, x_tilde, eps)
+
+
+def draw_step(
+    generator: Optional[torch.Generator],
+    data: ConditionedData,
+    config: M.MFDGPConfig,
+    batch_size: int,
+) -> StepDraws:
+    n, d = data.x.shape
+    bsz = min(batch_size, n)
+    dtype, device = data.x.dtype, data.x.device
+    bidx = None
+    if bsz < n:
+        bidx = torch.randperm(n, generator=generator, device=device)[:bsz]
+    x_tilde = torch.rand((NUM_OMEGA_POINTS, d), generator=generator, dtype=dtype, device=device)
+    num_models = data.ys_obj.shape[0] + data.ys_con.shape[0]
+    rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
+    eps = torch.randn((num_models, max(config.num_fidelities - 1, 0), rows),
+                      generator=generator, dtype=dtype, device=device)
+    return StepDraws(batch_idx=bidx, x_tilde=x_tilde, eps=eps)
+
+
+def train_conditioned_carry(
+    obj_params: M.MFDGPParams,
+    con_params: M.MFDGPParams,
+    obj_consts: M.MFDGPConsts,
+    con_consts: M.MFDGPConsts,
+    config: M.MFDGPConfig,
+    data: ConditionedData,
+    generator: Optional[torch.Generator],
+    num_iters: int,
+    lr: float,
+    eps_const: float,
+    batch_size: int,
+    opt_state: Optional[dict] = None,
+    draws: Optional[Sequence[StepDraws]] = None,
+):
+    """Joint conditioned Adam steps with an explicit optimizer-state carry:
+    opt_state None starts fresh, passing it back continues. Returns
+    (obj_params, con_params, opt_state, losses (num_iters,)).
+
+    Every model sees the same per-step minibatch (identical to the
+    reference when batch_size >= N, the examples' default). draws: one
+    StepDraws per step (default: drawn from `generator`)."""
+    num_obj = data.ys_obj.shape[0]
+    n = data.x.shape[0]
+    all_p, all_c = _stack(obj_params, con_params, obj_consts, con_consts)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), all_p)
+    leaves = tree_leaves(params)
+    masks = tree_leaves(trainer.MASK_BUILDERS["fix_cond"](params))
+    opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
+    if opt_state is not None:
+        opt.load_state_dict(opt_state)
+    rw = data.row_weights
+    if rw is None:
+        rw = torch.ones((n,), dtype=data.x.dtype, device=data.x.device)
+    full = torch.arange(n, device=data.x.device)
+
+    losses = []
+    for it in range(num_iters):
+        dr = draws[it] if draws is not None else draw_step(generator, data, config, batch_size)
+        bidx = full if dr.batch_idx is None else dr.batch_idx
+        opt.zero_grad(set_to_none=True)
+        loss = _loss_stacked(
+            params, all_c, config, data, eps_const, bidx, rw[bidx], dr.x_tilde, dr.eps
+        )
+        loss.backward()
+        for p, m in zip(leaves, masks):
+            if p.grad is not None and m != 1.0:
+                p.grad.mul_(m)
+        opt.step()
+        losses.append(loss.detach())
+
+    params = tree_map(lambda t: t.detach(), params)
+    op = tree_map(lambda t: t[:num_obj], params)
+    cp = tree_map(lambda t: t[num_obj:], params)
+    empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
+    return op, cp, opt.state_dict(), torch.stack(losses) if losses else empty
+
+
+def train_conditioned(
+    obj_params, con_params, obj_consts, con_consts, config, data, generator,
+    num_iters: int, lr: float, eps_const: float, batch_size: int,
+    draws: Optional[Sequence[StepDraws]] = None,
+):
+    """A fresh conditioned phase: (obj_params, con_params, losses)."""
+    op, cp, _, losses = train_conditioned_carry(
+        obj_params, con_params, obj_consts, con_consts, config, data, generator,
+        num_iters, lr, eps_const, batch_size, draws=draws,
+    )
+    return op, cp, losses
+
+
+def _check_shared_inducing(obj_consts: M.MFDGPConsts, con_consts: Optional[M.MFDGPConsts]) -> None:
+    """The stacked loss reuses one set of inducing inputs for objectives and
+    constraints (the coupled-evaluation contract, reference
+    blackbox_mfdgp_fitter.py:87-91): refuse models fit on other inputs."""
+    if con_consts is None:
+        return
+    for ell, (zo, zc) in enumerate(zip(obj_consts.z_x, con_consts.z_x)):
+        if zo.shape != zc.shape or not torch.equal(zo, zc):
+            raise ValueError(
+                "conditioned training requires objective and constraint models "
+                f"with identical inducing inputs; layer {ell} differs "
+                f"(shapes {tuple(zo.shape)} vs {tuple(zc.shape)})"
+            )
+
+
+def train_conditioned_chunked(
+    obj_params, con_params, obj_consts, con_consts, config, data, generator,
+    num_iters: int, lr: float, eps_const: float, batch_size: int,
+) -> Tuple[M.MFDGPParams, M.MFDGPParams, torch.Tensor]:
+    """The fitter's entry point: checks the shared inducing inputs, then
+    runs the phase. The JAX package cuts it into bounded device programs
+    with the Adam state carried across; eager PyTorch has no program to
+    bound, so the phase runs as one carry."""
+    _check_shared_inducing(obj_consts, con_consts)
+    return train_conditioned(
+        obj_params, con_params, obj_consts, con_consts, config, data, generator,
+        num_iters, lr, eps_const, batch_size,
+    )
+
+
+def empty_like_stack(params: M.MFDGPParams, consts: M.MFDGPConsts) -> Tuple[M.MFDGPParams, M.MFDGPConsts]:
+    """Explicitly empty stacked params / consts (leading dim 0), for a
+    problem with no constraints."""
+    return tree_map(lambda a: a[:0], params), consts._replace(
+        acq_eps=consts.acq_eps[:0],
+        noise_lower=consts.noise_lower[:0],
+        noise_upper=consts.noise_upper[:0],
+    )
+

@@ -1,10 +1,11 @@
-"""BlackBoxMFDGPFitter: model setup and unconditioned training
+"""BlackBoxMFDGPFitter: the training and conditioning engine
 (counterpart of mobocmf_tpu/fit/fitter.py).
 
 Holds one MFDGP per blackbox (objectives and constraints share x: coupled
-evaluation), and trains all of them at once with the two-phase schedule,
-stacked on a leading blackbox dim. Pareto sampling and conditioned training
-are not ported yet.
+evaluation), trains all of them at once with the two-phase schedule,
+stacked on a leading blackbox dim, samples a Pareto solution through MOOP
+over RFF pathwise samples, and retrains every model conditioned on it
+(theta / omega factors, fit/conditioned.py).
 """
 
 from __future__ import annotations
@@ -18,10 +19,15 @@ import torch
 
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device, resolve_dtype
 from mobocmf_tpu_torch.fit import bucketing, trainer
+from mobocmf_tpu_torch.fit import conditioned as C
 from mobocmf_tpu_torch.linalg import chol
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.mfdgp import TL
+from mobocmf_tpu_torch.moop.moop import MOOP, NotFeasiblePoints, ParetoSolution, SampledFunction
+from mobocmf_tpu_torch.sampling import rff
 from mobocmf_tpu_torch.util.tree import tree_leaves
+
+MAX_TRIES_FOR_FEASIBLE_GRID = 50  # reference MFDGPHandler.MAX_TRIES_FOR_FEASIBLE_GRID
 
 
 class BlackBoxMFDGPFitter:
@@ -42,14 +48,15 @@ class BlackBoxMFDGPFitter:
         whitened: bool = False,
         whitened_init: str = "match",
         pad_data: bool = False,
+        polish: str = "slsqp",
         device: DeviceLike = None,
         dtype: Optional[torch.dtype] = None,
     ):
         """Constructor defaults of the JAX fitter (fitter.py:39-58).
-        pareto_set_size, opt_grid_size and decoupled_evals are kept for the
-        Pareto-sampling stage, not ported yet. pad_data: bucket the training
-        rows (fit/bucketing.py). device: `cuda` unless named; dtype: float32
-        unless named (the CPU parity tests pass float64)."""
+        pad_data: bucket the training rows (fit/bucketing.py). polish: the
+        MOOP's polish of each objective's optimum, "slsqp" (host scipy) or
+        "none". device: `cuda` unless named; dtype: float32 unless named
+        (the CPU parity tests pass float64)."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.num_obj = 0
@@ -81,13 +88,20 @@ class BlackBoxMFDGPFitter:
         self.type_lengthscale = type_lengthscale
         self.whitened = whitened
         self.whitened_init = whitened_init
-        # host draws (acq_eps at init) and device draws (training eps)
+        self.polish = polish
+        # host draws (acq_eps at init) and device draws (training eps, RFF
+        # frequencies and phases, MOOP grids, conditioned draws)
         self.host_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._x_np: Optional[np.ndarray] = None
         # one entry per trained phase: epochs, seconds, first/last summed
-        # neg-ELBO, K1 launches and ladder escalations during the phase
+        # loss, K1 launches and ladder escalations during the phase
         self.phase_stats: List[dict] = []
+
+        self.pareto_solution: Optional[ParetoSolution] = None
+        self.samples_objs = None
+        self.samples_cons = None
+        self.pareto_tries = 0
 
     # -- setup -----------------------------------------------------------------
 
@@ -162,6 +176,14 @@ class BlackBoxMFDGPFitter:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _phase_record(self, label, phase, epochs, seconds, losses, launches0, esc0) -> dict:
+        return dict(
+            label=label, phase=phase, epochs=epochs, seconds=seconds,
+            first=float(losses[0]), last=float(losses[-1]),
+            chol_launches=chol.launches - launches0,
+            escalations=chol.escalations() - esc0,
+        )
+
     def _train_group(self, entries, label):
         """entries: (name, is_constraint, y). Objectives and constraints
         share x and shapes, so all stack into one model trained at once."""
@@ -192,12 +214,9 @@ class BlackBoxMFDGPFitter:
             seconds = time.perf_counter() - t0
             stacked = stacked._replace(params=params)
             loss = logs.loss.sum(dim=0).cpu().numpy()
-            self.phase_stats.append(dict(
-                label=label, phase=phase + 1, epochs=epochs, seconds=seconds,
-                first=float(loss[0]), last=float(loss[-1]),
-                chol_launches=chol.launches - launches0,
-                escalations=chol.escalations() - esc0,
-            ))
+            self.phase_stats.append(
+                self._phase_record(label, phase + 1, epochs, seconds, loss, launches0, esc0)
+            )
             print(
                 f"[{label}] phase {phase + 1}: epochs={epochs} "
                 f"first/last neg-ELBO {loss[0]:.4f} / {loss[-1]:.4f}",
@@ -224,6 +243,130 @@ class BlackBoxMFDGPFitter:
         if entries:
             self._train_group(entries, "ALL")
         self.models_uncond_trained = True
+
+    # -- Pareto sampling ---------------------------------------------------------
+
+    def _sample_models(self, names, models_dict) -> List[rff.MFDGPFunctionSample]:
+        """Pathwise samples of the (same-shaped) blackbox models, one
+        batched layer-state pass for all of them."""
+        m = trainer.stack_models([models_dict[n] for n in names])
+        return rff.sample_posterior_stacked(self.generator, m.params, m.consts, m.config)
+
+    def _pareto_attempt(self, moop: MOOP, allow_negative: bool):
+        self.pareto_tries += 1
+        return moop.compute_pareto_solution_from_samples(
+            self.x_train.double().cpu().numpy(), self.generator,
+            allow_negative_constraints=allow_negative,
+            inputs_valid=(self.row_weights > 0).cpu().numpy(),
+            like=self.x_train,
+        )
+
+    def _sample_and_store_pareto_solution(self) -> ParetoSolution:
+        samples_objs = self._sample_models(self.obj_names, self.models_objs)
+        obj_fns = [SampledFunction(rff.eval_sample_fn, s) for s in samples_objs]
+        moop, samples_cons = None, []
+        for try_idx in range(MAX_TRIES_FOR_FEASIBLE_GRID):
+            if try_idx > 0 and try_idx % 10 == 0:
+                # degenerate objective samples would make the retries spin:
+                # refresh them every 10 tries (beyond the reference, :181-186)
+                samples_objs = self._sample_models(self.obj_names, self.models_objs)
+                obj_fns = [SampledFunction(rff.eval_sample_fn, s) for s in samples_objs]
+            samples_cons = (
+                self._sample_models(self.con_names, self.models_cons) if self.con_names else []
+            )
+            con_fns = [SampledFunction(rff.eval_sample_fn, s) for s in samples_cons]
+            moop = MOOP(
+                obj_fns, con_fns,
+                input_dim=self.x_train.shape[1],
+                grid_size=self.opt_grid_size * self.x_train.shape[1],
+                pareto_set_size=self.pareto_set_size,
+                feasible_values=-1.0 * np.asarray(self.thresholds_cons),
+                polish=self.polish,
+            )
+            res = self._pareto_attempt(moop, False)
+            if res is not None:
+                break
+            if (try_idx + 1) % 5 == 0:
+                print(f"[pareto] no feasible grid after {try_idx + 1} constraint resamples; "
+                      "retrying", flush=True)
+        else:
+            res = self._pareto_attempt(moop, True)
+            if res is None:
+                raise NotFeasiblePoints(
+                    "[ERROR] No feasible points were found in the constraint space! "
+                    f"# tries: {MAX_TRIES_FOR_FEASIBLE_GRID}."
+                )
+        self.pareto_solution = res[0]
+        self.samples_objs, self.samples_cons = samples_objs, samples_cons
+        return self.pareto_solution
+
+    def sample_and_store_pareto_solution(self) -> ParetoSolution:
+        """Retry-forever wrapper (reference :219-225); self.pareto_tries
+        counts the MOOP attempts this call took (1 = the first draw worked)."""
+        self.pareto_tries = 0
+        while True:
+            try:
+                return self._sample_and_store_pareto_solution()
+            except NotFeasiblePoints:
+                print("Not feasible solution found, trying another time!", flush=True)
+
+    @property
+    def pareto_set(self) -> torch.Tensor:
+        return self.pareto_solution.pareto_set
+
+    @property
+    def pareto_front(self) -> torch.Tensor:
+        return self.pareto_solution.pareto_front
+
+    # -- conditioned training ------------------------------------------------------
+
+    def train_conditioned_mfdgps(self):
+        """Joint conditioned retraining of every model on the stored Pareto
+        solution (reference :227-348), num_epochs_2 iterations at lr_2."""
+        if self.pareto_solution is None:
+            raise RuntimeError("sample a Pareto solution first")
+        obj = trainer.stack_models([self.models_objs[n] for n in self.obj_names])
+        if self.con_names:
+            con = trainer.stack_models([self.models_cons[n] for n in self.con_names])
+            cp, cc = con.params, con.consts
+            ys_con = torch.stack(self.ys_cons)
+        else:
+            # explicitly empty stacked constraint params (leading dim 0)
+            cp, cc = C.empty_like_stack(obj.params, obj.consts)
+            ys_con = torch.zeros((0, self.x_train.shape[0]), dtype=self.dtype, device=self.device)
+        sol = self.pareto_solution
+        data = C.ConditionedData(
+            x=self.x_train,
+            ys_obj=torch.stack(self.ys_objs),
+            ys_con=ys_con,
+            fidelities=self.fidelities,
+            pareto_set=sol.pareto_set,
+            pareto_front=sol.pareto_front,
+            front_mask=sol.mask,
+            thresholds=torch.as_tensor(self.thresholds_cons, dtype=self.dtype, device=self.device),
+            row_weights=self.row_weights,
+        )
+        launches0, esc0 = chol.launches, chol.escalations()
+        self._sync()
+        t0 = time.perf_counter()
+        op, cp, losses = C.train_conditioned_chunked(
+            obj.params, cp, obj.consts, cc, obj.config, data, self.generator,
+            self.num_epochs_2, self.lr_2, self.eps, self._effective_batch_size(),
+        )
+        self._sync()
+        seconds = time.perf_counter() - t0
+        losses = losses.cpu().numpy()
+        if losses.size:
+            self.phase_stats.append(
+                self._phase_record("COND", "cond", self.num_epochs_2, seconds, losses,
+                                   launches0, esc0)
+            )
+            print(f"[COND] iters={self.num_epochs_2} first/last loss "
+                  f"{losses[0]:.4f} / {losses[-1]:.4f}", flush=True)
+        for n, p in zip(self.obj_names, trainer.unstack_params(op, len(self.obj_names))):
+            self.models_objs[n] = self.models_objs[n]._replace(params=p)
+        for n, p in zip(self.con_names, trainer.unstack_params(cp, len(self.con_names))):
+            self.models_cons[n] = self.models_cons[n]._replace(params=p)
 
     # -- misc ------------------------------------------------------------------
 

@@ -104,6 +104,21 @@ def stack_models(models: List[M.MFDGPModel]) -> M.MFDGPModel:
     return M.MFDGPModel(params=params, consts=consts, config=config)
 
 
+def states_stacked(
+    params: M.MFDGPParams, consts: M.MFDGPConsts, config: M.MFDGPConfig, with_inv: bool = False
+) -> List[M.LayerState]:
+    """Per-model layer states of a stacked model (the JAX package vmaps
+    compute_layer_states; here the blackbox dim is already written out).
+    x-independent: callers evaluating several terms or many candidates
+    against the same models compute it once."""
+    return M.compute_layer_states(params, consts, config, with_inv=with_inv)
+
+
+def unstack_params(params: M.MFDGPParams, num_models: int) -> List[M.MFDGPParams]:
+    """The B = 1 params of each stacked blackbox (views, no copies)."""
+    return [tree_map(lambda a, i=i: a[i : i + 1], params) for i in range(num_models)]
+
+
 def select_model(model: M.MFDGPModel, i: int) -> M.MFDGPModel:
     """Blackbox i of a stacked model, as a B = 1 model (views, no copies)."""
     def take(a):

@@ -36,12 +36,13 @@ def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, jitter, ladder):
-        l, _ = cholesky(k, jitter, ladder=ladder)
+        l, level = cholesky(k, jitter, ladder=ladder)
         ctx.save_for_backward(l)
-        return l
+        ctx.mark_non_differentiable(level)
+        return l, level
 
     @staticmethod
-    def backward(ctx, l_bar):
+    def backward(ctx, l_bar, _level_bar):
         (l,) = ctx.saved_tensors
         return chol_pullback(l, l_bar), None, None
 
@@ -51,14 +52,34 @@ def _diag_scale(k: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(torch.diagonal(k.detach(), dim1=-2, dim2=-1)), dim=-1)
 
 
-def safe_cholesky(k: torch.Tensor, jitter) -> torch.Tensor:
-    """Cholesky of k + jitter*I with the escalating-jitter ladder in f32.
+def safe_cholesky_level(k: torch.Tensor, jitter):
+    """Cholesky of k + jitter*I with the escalating-jitter ladder in f32,
+    and the ladder rung each matrix ended on (int32, not differentiable).
 
-    f64: one plain factorization at exactly `jitter`. f32: the jitter is
-    floored at 4*eps*scale and a failed matrix escalates 100x twice with
-    256*eps*scale / sqrt(eps)*scale floors (see linalg/chol.py).
+    f64: one plain factorization at exactly `jitter` (rung 0). f32: the
+    jitter is floored at 4*eps*scale and a failed matrix escalates 100x
+    twice with 256*eps*scale / sqrt(eps)*scale floors (see linalg/chol.py;
+    `ladder_jitter` rebuilds the jitter a rung stands for).
     `jitter` is a float or a per-matrix tensor."""
     return _SafeCholesky.apply(k.contiguous(), jitter, k.dtype != torch.float64)
+
+
+def safe_cholesky(k: torch.Tensor, jitter) -> torch.Tensor:
+    """The factor of safe_cholesky_level."""
+    return safe_cholesky_level(k, jitter)[0]
+
+
+def ladder_jitter(jitter: float, level: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The jitter safe_cholesky_level factorized with at ladder rung
+    `level`, for matrices of mean |diagonal| `scale` (cholesky_plain's
+    formula). f64 (no ladder): exactly `jitter`."""
+    if scale.dtype == torch.float64:
+        return torch.full_like(scale, jitter)
+    eps = torch.finfo(scale.dtype).eps
+    j = torch.clamp(4.0 * eps * scale, min=jitter)
+    j1 = torch.maximum(100.0 * j, 256.0 * eps * scale)
+    j2 = torch.maximum(100.0 * j1, eps**0.5 * scale)
+    return torch.where(level == 0, j, torch.where(level == 1, j1, j2))
 
 
 def safe_cholesky_rel(k: torch.Tensor, rel: float) -> torch.Tensor:

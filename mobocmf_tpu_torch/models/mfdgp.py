@@ -22,6 +22,14 @@ per-fidelity Interval(1e-8, 0.1*y_std_f) noises, the nearest-same-fidelity
 inducing values, the variational init, train-mode fresh normals vs
 eval-mode fixed normals, and the 25x-tiled moment-matched acquisition
 predictive.
+
+K2 routing: layer 0 goes through K2 (linalg/fused_svgp.py, its own Gram
+and factor at the jitter the state's K1 factor ended on) exactly when no
+gradient is recorded and the model is unwhitened, for inputs shared by
+all blackboxes (`uses_k2`): the acquisition screening and the
+recommendation pass. Layer 0 sees x tiled 25x there, so K2 runs on the
+untiled points and its output is repeated. Training, conditioned training
+and the L-BFGS loop keep predict_diag_state.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from mobocmf_tpu_torch.core.constraints import Interval
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device, resolve_dtype
 from mobocmf_tpu_torch.core.distances import median_lengthscale_np
 from mobocmf_tpu_torch.kernels import deep_mf, rbf
-from mobocmf_tpu_torch.linalg.ops import safe_cholesky
+from mobocmf_tpu_torch.linalg.fused_svgp import fused_rbf_svgp_forward
+from mobocmf_tpu_torch.linalg.ops import ladder_jitter, safe_cholesky_level
 from mobocmf_tpu_torch.models import svgp
 from mobocmf_tpu_torch.util.tree import tree_map
 
@@ -311,6 +320,7 @@ class LayerState(NamedTuple):
     lk: torch.Tensor  # (B, M, M) chol(Kzz + jitter I)
     w_mean: torch.Tensor  # (B, M)
     w_ls: torch.Tensor  # (B, M, M)
+    level: torch.Tensor  # (B,) jitter-ladder rung lk ended on (linalg/ops.py)
     lk_inv: Optional[torch.Tensor] = None  # explicit L^{-1}, acquisition loops only
 
 
@@ -334,13 +344,15 @@ def compute_layer_states(
         else:
             z_b = z_x.expand(chain_mean.shape[:-1] + z_x.shape)
             z = torch.cat([z_b, chain_mean.unsqueeze(-1)], dim=-1)
-        lk = safe_cholesky(gram(lp.kernel, z, z), config.jitter)
+        lk, level = safe_cholesky_level(gram(lp.kernel, z, z), config.jitter)
         w_mean, w_ls = svgp.solve_variational(lp.variational, lk, config.whitened)
         lk_inv = None
         if with_inv:
             eye = torch.eye(lk.shape[-1], dtype=lk.dtype, device=lk.device)
             lk_inv = torch.linalg.solve_triangular(lk, eye, upper=False)
-        states.append(LayerState(z=z, lk=lk, w_mean=w_mean, w_ls=w_ls, lk_inv=lk_inv))
+        states.append(
+            LayerState(z=z, lk=lk, w_mean=w_mean, w_ls=w_ls, level=level, lk_inv=lk_inv)
+        )
         if ell + 1 < config.num_fidelities and not config.only_hf:
             m = lp.variational.mean
             if config.whitened:
@@ -354,6 +366,25 @@ def compute_layer_states(
     return states
 
 
+def uses_k2(config: MFDGPConfig, x: torch.Tensor) -> bool:
+    """Layer 0 runs through K2 (linalg/fused_svgp.py) exactly when no
+    gradient is being recorded and the model is unwhitened (K2 is forward
+    only and unwhitened, as the TPU kernel), for inputs shared by every
+    blackbox. That covers the acquisition screening and the recommendation
+    pass; training and the L-BFGS loop keep predict_diag_state."""
+    return not torch.is_grad_enabled() and not config.whitened and x.ndim == 2
+
+
+def _layer0_k2(lp: MFDGPLayerParams, st: LayerState, config: MFDGPConfig, x: torch.Tensor):
+    """Layer-0 predictive of every blackbox through K2, at the jitter the
+    state's factor ended on (K2 climbs no ladder). The ladder's scale is the
+    Gram's mean diagonal, the outputscale."""
+    ls, os_ = rbf.scale_rbf_constrained(lp.kernel)
+    jitter = ladder_jitter(config.jitter, st.level, os_)
+    var = lp.variational
+    return fused_rbf_svgp_forward(st.z, x, var.mean, torch.tril(var.chol_raw), ls, os_, jitter)
+
+
 def forward(
     params: MFDGPParams,
     consts: MFDGPConsts,
@@ -362,12 +393,15 @@ def forward(
     eps: torch.Tensor,
     max_fidelity: Optional[int] = None,
     states: Optional[List[LayerState]] = None,
+    tile: int = 1,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Propagate x through the layer stack (reference mfdgp.py:174-196).
 
     x: (N, d) or (B, N, d); eps: (B, F-1, N) or (F-1, N) standard normals
     sampling each layer's output before it feeds the next. Returns
-    [(mu, var)] per layer, each (B, N)."""
+    [(mu, var)] per layer, each (B, N). tile: x holds each point `tile`
+    times in a row (row n*tile + i); layer 0's output is the same for the
+    copies, so the K2 route computes it once per point and repeats it."""
     num_layers = config.num_fidelities if max_fidelity is None else max_fidelity + 1
     if states is None:
         states = compute_layer_states(params, consts, config)
@@ -377,15 +411,21 @@ def forward(
         gram, diag = _layer_fns(ell, config.only_hf)
         lp = params.layers[ell]
         st = states[ell]
-        if ell == 0:
-            x_in = x
+        if ell == 0 and uses_k2(config, x):
+            mu, var = _layer0_k2(lp, st, config, x[::tile])
+            if tile > 1:
+                mu = torch.repeat_interleave(mu, tile, dim=-1)
+                var = torch.repeat_interleave(var, tile, dim=-1)
         else:
-            prev = torch.zeros_like(f_prev) if config.only_hf else f_prev
-            x_b = x.expand(prev.shape[:-1] + x.shape[-2:])
-            x_in = torch.cat([x_b, prev.unsqueeze(-1)], dim=-1)
-        mu, var = svgp.predict_diag_state(
-            gram, diag, lp.kernel, st.z, x_in, st.lk, st.w_mean, st.w_ls, lk_inv=st.lk_inv
-        )
+            if ell == 0:
+                x_in = x
+            else:
+                prev = torch.zeros_like(f_prev) if config.only_hf else f_prev
+                x_b = x.expand(prev.shape[:-1] + x.shape[-2:])
+                x_in = torch.cat([x_b, prev.unsqueeze(-1)], dim=-1)
+            mu, var = svgp.predict_diag_state(
+                gram, diag, lp.kernel, st.z, x_in, st.lk, st.w_mean, st.w_ls, lk_inv=st.lk_inv
+            )
         outputs.append((mu, var))
         if ell + 1 < num_layers:
             f_prev = mu + torch.sqrt(var) * eps[..., ell, :]
@@ -418,9 +458,10 @@ def predict(
     fidelity: int,
     eps: torch.Tensor,
     states: Optional[List[LayerState]] = None,
+    tile: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Predictive with likelihood noise at `fidelity` (reference mfdgp.py:220-235)."""
-    outs = forward(params, consts, config, x, eps, max_fidelity=fidelity, states=states)
+    outs = forward(params, consts, config, x, eps, max_fidelity=fidelity, states=states, tile=tile)
     mu, var = outs[fidelity]
     return mu, var + likelihood_noise(params, consts, fidelity).unsqueeze(-1)
 
@@ -459,7 +500,7 @@ def predict_for_acquisition(
     """25x-tiled eval-mode predictive + moment matching (reference
     mfdgp.py:237-262); deterministic through the fixed acq_eps. (B, n) each."""
     x_tile, eps, n, s = _acq_inputs(consts, config, x)
-    mus_t, vars_t = predict(params, consts, config, x_tile, fidelity, eps, states=states)
+    mus_t, vars_t = predict(params, consts, config, x_tile, fidelity, eps, states=states, tile=s)
     return _moment_match(mus_t, vars_t, n, s)
 
 
@@ -473,7 +514,7 @@ def predict_for_acquisition_all(
     """predict_for_acquisition at every fidelity from one all-layer forward:
     (mus, vars) of shape (B, F, n), row f equal to predict_for_acquisition(f)."""
     x_tile, eps, n, s = _acq_inputs(consts, config, x)
-    outs = forward(params, consts, config, x_tile, eps, states=states)
+    outs = forward(params, consts, config, x_tile, eps, states=states, tile=s)
     mus_all, vars_all = [], []
     for f, (mu_t, var_t) in enumerate(outs):
         var_t = var_t + likelihood_noise(params, consts, f).unsqueeze(-1)

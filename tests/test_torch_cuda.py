@@ -1,5 +1,6 @@
-"""The port's CUDA path on the card: K1 against its plain version, and a
-short f64 training run on the card against the same run on the CPU.
+"""The port's CUDA path on the card: K1 and K2 against their plain versions,
+a short f64 training run on the card against the same run on the CPU, and
+the K2 route of the acquisition predictive against the plain route.
 
 Every test here needs a CUDA device (marker `cuda`) and skips without one.
 The file imports no JAX, so it runs on a GPU machine without JAX:
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from mobocmf_tpu_torch.fit import trainer
-from mobocmf_tpu_torch.linalg import chol, ops
+from mobocmf_tpu_torch.linalg import chol, fused_svgp, ops
 from mobocmf_tpu_torch.models import mfdgp as M
 
 pytestmark = pytest.mark.cuda
@@ -21,7 +22,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel runs on the card only")
+        pytest.skip("needs a CUDA device: the K1 and K2 kernels run on the card only")
     return torch.device("cuda")
 
 
@@ -99,3 +100,54 @@ def test_f64_training_on_card_matches_cpu(cuda_device):
             assert chol.launches == 2 * 6
         runs.append(logs.loss.cpu())
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-8, atol=0.0)
+
+
+def _k2_problem(batch, m, n, d, dtype, device):
+    rng = np.random.default_rng(m + n)
+    vals = (rng.uniform(size=(m, d)), rng.uniform(size=(n, d)), rng.normal(size=(batch, m)),
+            np.tril(rng.normal(size=(batch, m, m)) * 0.05) + 0.3 * np.eye(m),
+            np.full((batch, d), 0.15), np.full((batch,), 1.3), np.full((batch,), 1e-2))
+    return [torch.as_tensor(v, dtype=dtype, device=device) for v in vals]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch,m,n,d", [(1, 128, 128, 3), (1, 100, 150, 3), (8, 128, 200, 2),
+                                         (6, 512, 200, 2), (2, 77, 45, 1)])
+def test_k2_matches_plain(cuda_device, dtype, batch, m, n, d):
+    args = _k2_problem(batch, m, n, d, dtype, cuda_device)
+    fused_svgp.reset_counts()
+    with torch.no_grad():
+        mu, var = fused_svgp.fused_rbf_svgp_forward(*args)
+        mu_p, var_p = fused_svgp.fused_rbf_svgp_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_svgp.launches == 1
+    tol = 2e-3 if dtype == torch.float32 else 1e-10
+    torch.testing.assert_close(mu, mu_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
+
+
+def test_k2_nan_on_a_failed_factor(cuda_device):
+    args = _k2_problem(2, 64, 10, 2, torch.float32, cuda_device)
+    args[6][1] = -10.0  # a negative jitter makes the second Gram indefinite
+    with torch.no_grad():
+        mu, var = fused_svgp.fused_rbf_svgp_forward(*args)
+    assert bool(torch.isfinite(mu[0]).all()) and bool(torch.isnan(mu[1]).any())
+    assert bool(torch.isnan(var[1]).any())
+
+
+def test_acquisition_predictive_k2_route_matches_plain_f64(cuda_device):
+    rng = np.random.default_rng(1)
+    x = rng.uniform(size=(30, 2))
+    fid = np.arange(30) % 2
+    ys = np.stack([np.sin(5 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0]])
+    models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                           device=cuda_device, dtype=torch.float64) for i, y in enumerate(ys)]
+    model = trainer.stack_models(models)
+    xq = torch.as_tensor(x[:9] + 0.01, device=cuda_device)
+    fused_svgp.reset_counts()
+    with torch.no_grad():
+        via_k2 = M.predict_for_acquisition_all(model.params, model.consts, model.config, xq)
+    assert fused_svgp.launches == 1
+    plain = M.predict_for_acquisition_all(model.params, model.consts, model.config, xq)
+    for a, b in zip(via_k2, plain):
+        torch.testing.assert_close(a, b.detach(), rtol=1e-9, atol=1e-12)
