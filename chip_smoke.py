@@ -22,7 +22,10 @@
    get_nextpoint_coupled -> the recommendation pass on a 1000-point grid,
    then the 128-bucket shape (4 blackboxes, 120 points), both f32 on the
    card, with the kernel counters set to 0 just before each stage and read
-   just after;
+   just after; it scores the candidates on the f64 copy of the models, and
+   holds K2 on the path's own trained states to the plain route's accuracy
+   (layer 0 against the f64 answer of the same system, and the
+   recommendation means against the f64 models);
 6. prints the kernel line and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
@@ -46,6 +49,12 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
 COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
+# K2 on the main path's f32 states against the plain route, from the H100
+# readings in PERF.md: at layer 0 K2 was 0.12x (bc512) and 0.24x (b128) as
+# far off the f64 answer as the plain route, so it may be no further off;
+# end to end (layer 1 on the plain route in both) 0.92x and 0.88x, bound 1.5x
+LAYER0_RATIO, LAYER0_FLOOR = 1.0, 1e-6
+END_TO_END_RATIO = 1.5
 
 
 class CheckFailed(Exception):
@@ -152,12 +161,21 @@ def phase_k1(P) -> dict:
     return records
 
 
+def k2_flops(m: int, n: int, d: int) -> float:
+    """Flops K2's function needs per state: the Gram's lower triangle and
+    K_zx ((3 d + 2) each entry: differences, squares, sum, exp, scale), the
+    factor M^3/3, the K_zx solve M^2 N, the solve of the lower-triangular
+    L_S M^3/3, the m solve M^2, the lower-triangular W_ls^T W M^2 N, and
+    the three column reductions 6 M N."""
+    gram = (m * (m + 1) / 2.0 + m * n) * (3 * d + 2)
+    return gram + 2.0 * m**3 / 3.0 + 2.0 * m * m * n + m * m + 6.0 * m * n
+
+
 def k2_bound_ms(batch: int, m: int, n: int, d: int, dtype) -> tuple:
-    """Least time for K2 on B states: per state M^3/3 (factor) + M^2 (N+M+1)
-    (one forward substitution) + 2 M^2 N (W_ls^T W) flops; bytes: z, x,
-    mean, ls_chol, lengthscale, outputscale, jitter read once, mu and var
-    written once."""
-    flops = batch * (m**3 / 3.0 + m * m * (n + m + 1) + 2.0 * m * m * n)
+    """Least time for K2 on B states: k2_flops at the dtype's peak against
+    the bytes of z, x, mean, ls_chol, lengthscale, outputscale, jitter read
+    once and mu, var written once."""
+    flops = batch * k2_flops(m, n, d)
     words = (m + n) * d + batch * (m + m * m + d + 2 + 2 * n)
     nbytes = words * torch.finfo(dtype).bits / 8
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
@@ -297,6 +315,33 @@ def staged(P, fn):
     return out, seconds, P.chol.launches, P.chol.escalations(), P.fused_svgp.launches
 
 
+def layer0_errors(P, model, x) -> tuple:
+    """Layer 0 of trained f32 states at x through K2 (no gradient) and
+    through the plain route (gradients on: K1's factor, cuBLAS solves), each
+    as the max over mu and var of max|err| / max|f64 answer|. The f64 answer
+    is the same system: the f32 parameters in f64, factored at the jitter the
+    f32 factor ended on."""
+    M = P.M
+    with torch.no_grad():
+        mu_k2, var_k2 = M.forward(model.params, model.consts, model.config, x, None,
+                                  max_fidelity=0)[0]
+    mu_pl, var_pl = M.forward(model.params, model.consts, model.config, x, None,
+                              max_fidelity=0)[0]
+    lp = model.params.layers[0]
+    ls, os_ = P.rbf.scale_rbf_constrained(lp.kernel)
+    level = M.compute_layer_states(model.params, model.consts, model.config)[0].level
+    jitter = P.ladder_jitter(model.config.jitter, level, os_)
+    args = (model.consts.z_x[0], x, lp.variational.mean, torch.tril(lp.variational.chol_raw),
+            ls, os_, jitter)
+    mu_ex, var_ex = P.fused_svgp.fused_rbf_svgp_forward_plain(*(t.detach().double() for t in args))
+
+    def err(mu, var):
+        return max(((mu.detach().double() - mu_ex).abs().max() / mu_ex.abs().max()).item(),
+                   ((var.detach().double() - var_ex).abs().max() / var_ex.abs().max()).item())
+
+    return err(mu_k2, var_k2), err(mu_pl, var_pl)
+
+
 def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     """One BO iteration's model side at full width: training, then JESMOC
     (Pareto sampling + conditioned training), the all-fidelity candidate
@@ -368,21 +413,40 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
         for name, _, is_con in blackboxes:
             jes.add_blackbox(f, name, cost_evaluation=(1.0, 10.0)[f], is_constraint=is_con)
     (x_next, fid_next), t_acq, k1_acq, _, k2_acq = staged(P, jes.get_nextpoint_coupled)
-    vals = jes.last_values
+    vals, lb = jes.last_values, P.optimize.last_stats
     print(f"[{label}] acquisition search (all fidelities, 200 raw samples, 5 restarts each): "
           f"{t_acq:.3f} s; x={x_next.tolist()} fidelity={fid_next}; values {vals.tolist()}; "
           f"K1 launches {k1_acq}; K2 launches {k2_acq}", flush=True)
+    print(f"[{label}] L-BFGS: {lb['iterations']} iterations, {lb['evaluations']} evaluations; "
+          f"of {lb['lanes']} lanes {lb['at_gtol']} ended at gtol, {lb['stuck']} on a line search "
+          f"with no decrease, {lb['at_maxiter']} at maxiter", flush=True)
     check(tuple(x_next.shape) == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all()),
           f"{label}: candidate {x_next.tolist()} outside [0, 1]^2")
     check(fid_next in (0, 1), f"{label}: fidelity {fid_next}")
     check(bool(torch.isfinite(vals).all()) and bool((vals >= 0).all()),
           f"{label}: acquisition values {vals.tolist()}")
     check(k2_acq >= 1, f"{label}: the screening did not launch K2")
+    check(lb["at_gtol"] + lb["stuck"] + lb["at_maxiter"] == lb["lanes"] == 10,
+          f"{label}: L-BFGS lanes {lb}")
+
+    # the f32 surface is not the model's: score each fidelity's candidate on
+    # the f64 copy of the uncond and cond models (plain route)
+    unc = jes.blackbox_mfdgp_fitter_uncond  # the constructor conditioned `fitter` in place
+    su = trainer.stack_models([unc.get_model(n, c) for n, _, c in blackboxes])
+    sc = trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes])
+    f64 = functools.partial(P.tree_map, lambda t: t.double() if t.is_floating_point() else t)
+    pair64 = (f64(su.params), f64(su.consts), f64(sc.params), f64(sc.consts), su.config)
+    at64 = torch.stack([P.coupled_acq_stacked(*pair64, f, jes.last_points[f:f + 1].double())[0]
+                        for f in range(2)]).detach()
+    print(f"[{label}] the candidates on the f64 models: {at64.tolist()} (f32 search values "
+          f"{vals.tolist()})", flush=True)
+    check(bool(torch.isfinite(at64).all()) and bool((at64 >= 0).all()),
+          f"{label}: f64 acquisition at the candidates {at64.tolist()}")
 
     objs = [n for n, _, c in blackboxes if not c]
     cons = [n for n, _, c in blackboxes if c]
-    obj = trainer.stack_models([fitter.get_model(n) for n in objs])
-    con = trainer.stack_models([fitter.get_model(n, True) for n in cons])
+    obj = trainer.stack_models([unc.get_model(n) for n in objs])
+    con = trainer.stack_models([unc.get_model(n, True) for n in cons])
     grid = torch.as_tensor(np.random.default_rng(SEED).uniform(size=(1000, 2)),
                            dtype=torch.float32, device="cuda")
     scale = torch.tensor([st for st, (_, _, c) in zip(stats, blackboxes) if not c], device="cuda")
@@ -396,20 +460,35 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
           f"{label}: recommendation means")
     check(not bool((mask & ~feasible).any()), f"{label}: an infeasible point on the front")
     check(k2_rec >= 1, f"{label}: the recommendation pass did not launch K2")
-    # the same means from the f64 copy of the models (plain route): the f32
-    # error of the K2 route and of the plain route (gradients on, no K2)
+
+    # K2 on the path's own trained f32 states: layer 0 of the screening's
+    # uncond and cond states, through K2 and through the plain route, each
+    # against the f64 answer of the same system
+    pair = trainer.stack_models([su, sc])
+    err_k2_l0, err_plain_l0 = layer0_errors(P, pair, grid)
+    print(f"[{label}] layer 0 of the {2 * len(blackboxes)} screening states on the grid, max rel "
+          f"err against f64 at the same jitter: K2 route {err_k2_l0:.3e}, plain route "
+          f"{err_plain_l0:.3e}", flush=True)
+    check(err_k2_l0 <= LAYER0_RATIO * err_plain_l0 + LAYER0_FLOOR,
+          f"{label}: layer 0 through K2 is {err_k2_l0:.3e} off, the plain route {err_plain_l0:.3e}")
+    # end to end: the recommendation means (top fidelity, layer 1 on the
+    # plain route in every case) against the f64 copy of the models, in
+    # standard deviations of each objective's outputs
     stacked = trainer.stack_models([obj, con])
-    p64 = P.tree_map(lambda t: t.double(), stacked.params)
-    c64 = P.tree_map(lambda t: t.double(), stacked.consts)
-    mu64, _ = M.predict_for_acquisition(p64, c64, stacked.config, grid.double(), 1)
+    mu64, _ = M.predict_for_acquisition(f64(stacked.params), f64(stacked.consts), stacked.config,
+                                        grid.double(), 1)
     mu_plain, _ = M.predict_for_acquisition(stacked.params, stacked.consts, stacked.config, grid, 1)
-    unscale = scale.double()
-    ref = mu64[: len(objs)].detach() * unscale[:, 1:2] + unscale[:, 0:1]
-    plain = mu_plain[: len(objs)].detach().double() * unscale[:, 1:2] + unscale[:, 0:1]
-    err_k2 = ((means.double() - ref).abs().max() / ref.abs().max()).item()
-    err_plain = ((plain - ref).abs().max() / ref.abs().max()).item()
-    print(f"[{label}] recommendation means against the f64 models: max rel err K2 route "
-          f"{err_k2:.3e}, plain route {err_plain:.3e} (f32 conditioning of the states)", flush=True)
+    sd = scale[:, 1:2].double()
+    via_k2 = (means.double() - scale[:, 0:1].double()) / sd
+    ref, plain = mu64[: len(objs)].detach(), mu_plain[: len(objs)].detach().double()
+    err_k2 = (via_k2 - ref).abs().max().item()
+    err_plain = (plain - ref).abs().max().item()
+    k2_vs_plain = (via_k2 - plain).abs().max().item()
+    print(f"[{label}] recommendation means against the f64 models, max err in output standard "
+          f"deviations: K2 route {err_k2:.3e}, plain route {err_plain:.3e}; K2 route against "
+          f"plain route {k2_vs_plain:.3e}", flush=True)
+    check(err_k2 <= END_TO_END_RATIO * err_plain,
+          f"{label}: recommendation means through K2 {err_k2:.3e} off, plain route {err_plain:.3e}")
     return dict(
         m=m, steps=steps, k1_train=k1_train, k1_slice=k1_jes + k1_acq, k2_acq=k2_acq,
         k2_rec=k2_rec, t_pareto=t_pareto, t_cond=cond["seconds"], cond_iters=cond_iters,
@@ -436,10 +515,13 @@ def main() -> int:
         return 2
     try:
         from mobocmf_tpu_torch import BlackBoxMFDGPFitter, _build
-        from mobocmf_tpu_torch.acquisition.jesmoc import JESMOC_MFDGP
+        from mobocmf_tpu_torch.acquisition import optimize
+        from mobocmf_tpu_torch.acquisition.jesmoc import JESMOC_MFDGP, coupled_acq_stacked
         from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
         from mobocmf_tpu_torch.fit import trainer
+        from mobocmf_tpu_torch.kernels import rbf
         from mobocmf_tpu_torch.linalg import chol, fused_svgp
+        from mobocmf_tpu_torch.linalg.ops import ladder_jitter
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
@@ -463,7 +545,8 @@ def main() -> int:
         P = SimpleNamespace(BlackBoxMFDGPFitter=BlackBoxMFDGPFitter, trainer=trainer,
                             chol=chol, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
                             tree_map=tree_map,
-                            JESMOC_MFDGP=JESMOC_MFDGP,
+                            JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
+                            optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
                             recommendation_model_pass=recommendation_model_pass)
         k1 = phase_k1(P)
         k2 = phase_k2(P)

@@ -171,7 +171,8 @@ class JESMOC_MFDGP:
             self.constraints[n_f] = {}
             self.costs_blackboxes[n_f] = {"total": 0.0}
         self._stacked_cache: Dict[int, Optional[tuple]] = {}
-        # values of the last candidate search, one per fidelity searched
+        # the last candidate search's best point and value, per fidelity searched
+        self.last_points: Optional[torch.Tensor] = None
         self.last_values: Optional[torch.Tensor] = None
 
     def add_blackbox(
@@ -239,6 +240,7 @@ class JESMOC_MFDGP:
     def _get_nextpoint_coupled_highest_fidelity(self, iteration=None, verbose=False):
         fidelity = self.num_fidelities - 1
         x_best, value = self._optimize_fidelity(fidelity)
+        self.last_points = x_best[None]
         self.last_values = torch.as_tensor(value).reshape(1)
         if verbose:
             print(f"Iter: {iteration} Acquisition: "
@@ -269,23 +271,25 @@ class JESMOC_MFDGP:
                 *fused, self.generator, self._input_dim(),
                 raw_samples=self.acq_raw_samples, maxiter=self.acq_maxiter,
             )
-            self.last_values = vals
+            self.last_points, self.last_values = xs, vals
             vals_host = vals.cpu().tolist()
             for fidelity in range(self.num_fidelities):
                 weighted = vals_host[fidelity] / self.costs_blackboxes[fidelity]["total"]
                 if best_weighted is None or weighted > best_weighted:
                     best_weighted, best_x, best_fid = weighted, xs[fidelity], fidelity
         else:
-            found = []
+            found, points = [], []
             for fidelity in range(self.num_fidelities):
                 x_f, value = self._optimize_fidelity(fidelity)
                 if x_f is None:  # no blackboxes registered at this fidelity
                     continue
                 found.append(float(value))
+                points.append(x_f)
                 weighted = float(value) / self.costs_blackboxes[fidelity]["total"]
                 if best_weighted is None or weighted > best_weighted:
                     best_weighted, best_x, best_fid = weighted, x_f, fidelity
             self.last_values = torch.as_tensor(found)
+            self.last_points = torch.stack(points) if points else None
         if best_x is None:
             raise ValueError("no blackboxes registered at any fidelity")
         if verbose:

@@ -27,9 +27,10 @@ K2 routing: layer 0 goes through K2 (linalg/fused_svgp.py, its own Gram
 and factor at the jitter the state's K1 factor ended on) exactly when no
 gradient is recorded and the model is unwhitened, for inputs shared by
 all blackboxes (`uses_k2`): the acquisition screening and the
-recommendation pass. Layer 0 sees x tiled 25x there, so K2 runs on the
-untiled points and its output is repeated. Training, conditioned training
-and the L-BFGS loop keep predict_diag_state.
+recommendation pass. Training, conditioned training and the L-BFGS loop
+keep predict_diag_state. Layer 0 sees x tiled 25x in the acquisition
+predictive; either route computes it on the untiled points and repeats
+its output.
 """
 
 from __future__ import annotations
@@ -401,7 +402,7 @@ def forward(
     sampling each layer's output before it feeds the next. Returns
     [(mu, var)] per layer, each (B, N). tile: x holds each point `tile`
     times in a row (row n*tile + i); layer 0's output is the same for the
-    copies, so the K2 route computes it once per point and repeats it."""
+    copies, so both routes compute it once per point and repeat it."""
     num_layers = config.num_fidelities if max_fidelity is None else max_fidelity + 1
     if states is None:
         states = compute_layer_states(params, consts, config)
@@ -411,18 +412,21 @@ def forward(
         gram, diag = _layer_fns(ell, config.only_hf)
         lp = params.layers[ell]
         st = states[ell]
-        if ell == 0 and uses_k2(config, x):
-            mu, var = _layer0_k2(lp, st, config, x[::tile])
+        if ell == 0:
+            x0 = x[..., ::tile, :]
+            if uses_k2(config, x):
+                mu, var = _layer0_k2(lp, st, config, x0)
+            else:
+                mu, var = svgp.predict_diag_state(
+                    gram, diag, lp.kernel, st.z, x0, st.lk, st.w_mean, st.w_ls, lk_inv=st.lk_inv
+                )
             if tile > 1:
                 mu = torch.repeat_interleave(mu, tile, dim=-1)
                 var = torch.repeat_interleave(var, tile, dim=-1)
         else:
-            if ell == 0:
-                x_in = x
-            else:
-                prev = torch.zeros_like(f_prev) if config.only_hf else f_prev
-                x_b = x.expand(prev.shape[:-1] + x.shape[-2:])
-                x_in = torch.cat([x_b, prev.unsqueeze(-1)], dim=-1)
+            prev = torch.zeros_like(f_prev) if config.only_hf else f_prev
+            x_b = x.expand(prev.shape[:-1] + x.shape[-2:])
+            x_in = torch.cat([x_b, prev.unsqueeze(-1)], dim=-1)
             mu, var = svgp.predict_diag_state(
                 gram, diag, lp.kernel, st.z, x_in, st.lk, st.w_mean, st.w_ls, lk_inv=st.lk_inv
             )

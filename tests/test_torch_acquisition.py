@@ -4,7 +4,8 @@ the port against the JAX package at f64.
 Gains are compared at fixed x (1e-9), through the plain route (gradients
 on) and the K2 route (no gradients). The optimizers run different L-BFGS
 implementations, so they are compared by value from the same raw samples:
-the port's best must be at least the JAX package's, less 1e-6."""
+the port's best must be at least the JAX package's, less 1e-6 (at f32:
+both candidates scored on the f64 surface, less the f32 surface's error)."""
 
 import jax
 import jax.numpy as jnp
@@ -132,6 +133,92 @@ def test_optimize_one_fidelity_by_value(fitters, fidelity):
     assert val_p.item() >= float(val_j) - 1e-6
 
 
+def test_optimize_all_fidelities_by_value_f32(fitters):
+    """The same search in float32, where the gradient seldom falls to gtol.
+    The f32 surface is itself off the f64 one by up to ~1e-1 (cancelling
+    variances in the log ratio; 7e-2 at a candidate here), so each package's f32 candidate is scored
+    on the f64 surface: the port's, whose lanes stop only at gtol, at
+    maxiter or on a line search with no decrease, scores at least the JAX
+    package's gtol-or-maxiter candidate, less the f32 surface's own error at
+    the two candidates (no f32 search resolves the surface more finely)."""
+    (ju, jp) = _stacks(fitters)
+    ju32 = jax.tree.map(
+        lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, ju[:4])
+    key, raw_samples = jax.random.key(5), 40
+    xs_j, _ = JJ.optimize_coupled_jes_all_fidelities(*ju32, ju[4], key, 2,
+                                                     raw_samples=raw_samples, maxiter=200)
+    raw = torch.as_tensor(np.array(jax.random.uniform(key, (raw_samples, 2), dtype=jnp.float32)))
+    jp32 = [jax.tree.map(np.asarray, t) for t in ju32]
+    pu = model_from_numpy(jp32[0], jp32[1], ju[4]._asdict(), "cpu", torch.float32)
+    pc = model_from_numpy(jp32[2], jp32[3], ju[4]._asdict(), "cpu", torch.float32)
+    xs_p, vals_p = PJ.optimize_coupled_jes_all_fidelities(
+        pu.params, pu.consts, pc.params, pc.consts, pu.config, None, 2,
+        raw_samples=raw_samples, maxiter=200, raw=raw)
+    st = PO.last_stats
+    assert vals_p.dtype == torch.float32 and bool(((xs_p >= 0) & (xs_p <= 1)).all())
+    assert st["at_gtol"] + st["stuck"] + st["at_maxiter"] == st["lanes"] == 10
+    xs_j = torch.as_tensor(np.array(xs_j), dtype=F64)
+    for fidelity in (0, 1):
+        cand = torch.stack([xs_p[fidelity].double(), xs_j[fidelity]])
+        at64 = PJ.coupled_acq_stacked(*jp, fidelity, cand)
+        at32 = PJ.coupled_acq_stacked(pu.params, pu.consts, pc.params, pc.consts, pu.config,
+                                      fidelity, cand.float())
+        surface_err = (at32.double() - at64).abs().max().item()
+        assert at64[0].item() >= at64[1].item() - surface_err, (fidelity, at64, surface_err)
+
+
+def _lanes_fun(z):
+    """Ten independent curved valleys, polynomial so that every element
+    rounds the same in any batch: (..., 10, 2) -> (..., 10)."""
+    c = torch.linspace(0.5, 1.5, 10, dtype=z.dtype)
+    a, b = z[..., 0], z[..., 1]
+    return (c - a) ** 2 + 5.0 * (b - a * a) ** 2 + 0.1 * c * b
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_lbfgs_iterates_do_not_depend_on_trials_per_evaluation(dtype):
+    """The line search takes the first passing step whether its trial steps
+    are evaluated one per call (the CPU default) or together (the card's
+    default): the same iterates, bit for bit, and fewer evaluations."""
+    z0 = torch.as_tensor(np.random.default_rng(2).normal(size=(10, 2)), dtype=dtype)
+    runs = []
+    for trials in (1, 4, PO._STEPS):
+        z = PO.batched_lbfgs(_lanes_fun, z0, 200, 1e-5, trials=trials)
+        runs.append((z, dict(PO.last_stats)))
+    (z1, s1), (z4, s4), (za, sa) = runs
+    assert torch.equal(z1, z4) and torch.equal(z1, za)
+    assert s1["iterations"] == s4["iterations"] == sa["iterations"]
+    assert sa["evaluations"] <= s4["evaluations"] <= s1["evaluations"]
+    assert sa["evaluations"] == sa["iterations"] + 1
+    assert s1["at_gtol"] + s1["stuck"] + s1["at_maxiter"] == 10
+    # every lane ends in its valley's one minimum, a = c / (1 + 0.1 c), b = a^2 - 0.01 c
+    c = torch.linspace(0.5, 1.5, 10, dtype=torch.float64)
+    a = c / (1.0 + 0.1 * c)
+    want = torch.stack([a, a * a - 0.01 * c], dim=-1)
+    assert (z1.double() - want).abs().max().item() < 1e-4
+
+
+def test_multi_surface_search_with_every_trial_in_one_evaluation(monkeypatch):
+    """The card's default, every trial step of a line search scored in one
+    evaluation of all lanes, gives the CPU default's candidates."""
+    centers = torch.tensor([[0.3, 0.7], [0.6, 0.2]], dtype=F64)
+
+    def acq_all(x):  # (N, 2) -> (2, N)
+        return (0.05 * torch.cos(9.0 * x[None, :, 0])
+                - torch.sum((x[None] - centers[:, None]) ** 2, dim=-1))
+
+    raw = torch.rand((30, 2), generator=torch.Generator().manual_seed(0), dtype=F64)
+    xs_1, vals_1 = PO.optimize_acqf_box_multi(acq_all, 2, 2, None, raw=raw)
+    evals_1 = PO.last_stats["evaluations"]
+    inner = PO.batched_lbfgs
+    monkeypatch.setattr(PO, "batched_lbfgs",
+                        lambda *a, **k: inner(*a, **{**k, "trials": PO._STEPS}))
+    xs_all, vals_all = PO.optimize_acqf_box_multi(acq_all, 2, 2, None, raw=raw)
+    np.testing.assert_allclose(xs_all.numpy(), xs_1.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(vals_all.numpy(), vals_1.numpy(), rtol=0, atol=1e-12)
+    assert PO.last_stats["evaluations"] == PO.last_stats["iterations"] + 1 <= evals_1
+
+
 def test_optimize_acqf_box_on_a_quadratic():
     """One surface, known optimum: L-BFGS in the sigmoid box converges to it."""
     center = torch.tensor([0.3, 0.7], dtype=F64)
@@ -187,6 +274,7 @@ def test_jesmoc_get_nextpoint_coupled_matches_jax(fitters, monkeypatch):
     vals_p = jes_p.last_values.numpy()
     costs = np.array([3.0, 30.0])
     assert fid_p == int(np.argmax(vals_p / costs)) and fid_p in (0, 1)
+    assert jes_p.last_points.shape == (2, 2) and torch.equal(jes_p.last_points[fid_p], x_p)
     assert x_p.shape == (2,) and bool(((x_p >= 0) & (x_p <= 1)).all())
     (ju, jp) = _stacks(fitters)
     want = np.asarray(JJ.coupled_acq_stacked(*ju, fid_j, jnp.asarray(np.asarray(x_j))[None]))[0]
