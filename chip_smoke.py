@@ -6,8 +6,14 @@
 1. builds the port's CUDA kernels from mobocmf_tpu_torch/csrc/ into
    build/kernels/ (one nvcc per source, all started together);
 2. holds K1 (the batched Cholesky) against its plain PyTorch version on the
-   card at the main path's shapes and more, f32 and f64, and times the
-   kernel, the plain version and torch.linalg.cholesky (the yardstick);
+   card at the main path's shapes and more (B 1, 3, 4 x n 128 to 2048 at
+   f32, on both sides of the plan's resident / L2 boundary and both
+   cluster sizes; B 3 x n 512, 1024 at f64), prints each shape's plan and
+   how many of its clusters the card holds at once; after the main path
+   (step 5) it times the kernel, the plain version and torch.linalg.cholesky
+   (the yardstick) there as device time per call (torch.profiler; the
+   wrapper's call time beside it), and reads the cost of one panel step
+   from the slope of time against n/32;
 3. holds K2 (the fused RBF-SVGP predictive) against its plain PyTorch
    version at the JAX kernel test's problem and at the slice's shapes, f32
    and f64, and times both (no single PyTorch call computes K2's function);
@@ -22,10 +28,12 @@
    get_nextpoint_coupled -> the recommendation pass on a 1000-point grid,
    then the 128-bucket shape (4 blackboxes, 120 points), both f32 on the
    card, with the kernel counters set to 0 just before each stage and read
-   just after; it scores the candidates on the f64 copy of the models, and
-   holds K2 on the path's own trained states to the plain route's accuracy
-   (layer 0 against the f64 answer of the same system, and the
-   recommendation means against the f64 models);
+   just after; before training it holds K1's ladder rung for each layer's
+   Kzz at the initial parameters to the plain version's and prints ladder
+   escalations per K1 launch; it scores the candidates on the f64 copy of
+   the models, and holds K2 on the path's own trained states to the plain
+   route's accuracy (layer 0 against the f64 answer of the same system,
+   and the recommendation means against the f64 models);
 6. prints the kernel line and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
@@ -94,16 +102,31 @@ def chol_bound_ms(batch: int, n: int, dtype) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+K1_SHAPES = [(torch.float32, b, n) for b in (1, 3, 4)
+             for n in (128, 200, 384, 512, 768, 1024, 1536, 2048)]
+K1_SHAPES += [(torch.float64, 3, 512), (torch.float64, 3, 1024)]
+
+
+def k1_input(b: int, n: int, dtype, dev):
+    a = spd(b, n, 1000 * b + n, dtype, dev)
+    jit = torch.full((b,), 1e-5 if dtype == torch.float32 else 2e-6, dtype=dtype, device=dev)
+    return a, jit
+
+
 def phase_k1(P) -> dict:
     """K1 against its plain version; returns the record of each shape."""
     chol = P.chol
     dev = torch.device("cuda")
-    shapes = [(torch.float32, b, n) for b in (1, 3, 4) for n in (128, 200, 384, 512, 1536)]
-    shapes.append((torch.float64, 3, 512))
     records = {}
-    for dtype, b, n in shapes:
-        a = spd(b, n, 1000 * b + n, dtype, dev)
-        jit = torch.full((b,), 1e-5 if dtype == torch.float32 else 2e-6, dtype=dtype, device=dev)
+    for dtype, b, n in K1_SHAPES:
+        tag = "f32" if dtype == torch.float32 else "f64"
+        pl = chol.plan(n, dtype)
+        active = chol.max_active_clusters(pl, dtype)
+        print(f"[k1] plan {tag} n={n}: cluster {pl.cluster}, "
+              f"{'resident' if pl.resident else 'L2'} storage, {pl.smem_bytes} B dynamic shared "
+              f"memory per block, max active clusters {active}", flush=True)
+        check(active >= 1, f"K1 {tag} n={n}: the card cannot hold one cluster of the plan")
+        a, jit = k1_input(b, n, dtype, dev)
         got, level = chol.cholesky(a, jit, ladder=True)
         want, want_level = chol.cholesky_plain(a, jit, True)
         torch.cuda.synchronize()
@@ -112,27 +135,14 @@ def phase_k1(P) -> dict:
         a_j = a.double() + jit.double()[:, None, None] * torch.eye(n, device=dev, dtype=torch.float64)
         g64 = got.double()
         recon = ((g64 @ g64.mT - a_j).abs().max() / a_j.abs().max()).item()
-        reps = 5 if n >= 1536 else 20
-        ms = cuda_ms(lambda: chol.cholesky(a, jit, ladder=True), reps)
-        plain_ms = cuda_ms(lambda: chol.cholesky_plain(a, jit, True), reps)
-        library_ms = cuda_ms(lambda: torch.linalg.cholesky(a), reps)
-        bound_ms, bound_by = chol_bound_ms(b, n, dtype)
-        tag = "f32" if dtype == torch.float32 else "f64"
-        print(
-            f"[k1] {tag} B={b} n={n}: max_rel_diff={rel:.3e} max_abs_err={err:.3e} "
-            f"recon={recon:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})",
-            flush=True,
-        )
+        print(f"[k1] {tag} B={b} n={n}: max_rel_diff={rel:.3e} max_abs_err={err:.3e} "
+              f"recon={recon:.3e}", flush=True)
         check(torch.equal(level, want_level), f"K1 {tag} B={b} n={n}: ladder rungs differ")
         check(bool(torch.isfinite(got).all()), f"K1 {tag} B={b} n={n}: non-finite factor")
         tol_rel, tol_recon = (1e-4, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
         check(rel < tol_rel, f"K1 {tag} B={b} n={n}: differs from plain by {rel:.3e}")
         check(recon < tol_recon, f"K1 {tag} B={b} n={n}: reconstruction error {recon:.3e}")
-        records[(tag, b, n)] = dict(
-            max_abs_err=err, max_rel_diff=rel, recon=recon, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-        )
+        records[(tag, b, n)] = dict(max_abs_err=err, max_rel_diff=rel, recon=recon)
 
     # an indefinite matrix gives a NaN diagonal from the failed pivot on
     a = spd(3, 256, 5, torch.float32, dev)
@@ -159,6 +169,44 @@ def phase_k1(P) -> dict:
     check(level.item() == want_level.item(), "K1: ladder rung differs from the plain version")
     check(bool(torch.isfinite(l).all()), "K1: the ladder did not end finite")
     return records
+
+
+def time_k1(P, records: dict) -> None:
+    """K1, its plain version and torch.linalg.cholesky (the yardstick) at
+    every shape of phase_k1, as device time per call (the card's kernels,
+    torch.profiler: the kernel alone for K1, every kernel of the call for
+    the others), with the wrapper's call time beside it, and the cost of one
+    panel step. It runs after the main path, and the call times before the
+    first profiler session: a session may leave the host slower for the
+    rest of the process."""
+    chol = P.chol
+    dev = torch.device("cuda")
+    for dtype, b, n in K1_SHAPES:
+        tag = "f32" if dtype == torch.float32 else "f64"
+        a, jit = k1_input(b, n, dtype, dev)
+        reps = 5 if n >= 1536 else 20
+        records[(tag, b, n)]["call_ms"] = cuda_ms(lambda: chol.cholesky(a, jit, ladder=True), reps)
+    for dtype, b, n in K1_SHAPES:
+        tag = "f32" if dtype == torch.float32 else "f64"
+        a, jit = k1_input(b, n, dtype, dev)
+        reps = 5 if n >= 1536 else 20
+        ms = P.device_ms(lambda: chol.cholesky(a, jit, ladder=True), reps, "chol_kernel")
+        plain_ms = P.device_ms(lambda: chol.cholesky_plain(a, jit, True), reps)
+        library_ms = P.device_ms(lambda: torch.linalg.cholesky(a), reps)
+        bound_ms, bound_by = chol_bound_ms(b, n, dtype)
+        rec = records[(tag, b, n)]
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print(f"[k1] {tag} B={b} n={n}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"call_ms={rec['call_ms']:.4f} (a loop of wrapper calls, CUDA events)", flush=True)
+    # the cost of one 32-wide panel step: the slope of the kernel's time
+    # against n/32 at one matrix, between two shapes of one cluster size
+    for lo, hi in ((128, 200), (384, 512)):
+        t_lo, t_hi = records[("f32", 1, lo)]["ms"], records[("f32", 1, hi)]["ms"]
+        blocks = chol.plan(hi, torch.float32).cluster
+        print(f"[k1] per-panel cost (f32, B=1, n {lo} -> {hi}, {blocks} blocks): "
+              f"{1e3 * (t_hi - t_lo) / ((hi - lo) / 32):.2f} us", flush=True)
 
 
 def k2_flops(m: int, n: int, d: int) -> float:
@@ -342,6 +390,34 @@ def layer0_errors(P, model, x) -> tuple:
     return err(mu_k2, var_k2), err(mu_pl, var_pl)
 
 
+def first_step_rungs(P, label, fitter, blackboxes) -> None:
+    """K1's ladder rung for each layer's Kzz at the first training step (the
+    initial parameters) against cholesky_plain's on the same matrices."""
+    model = P.trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes])
+    seen = []
+    kernel = P.ops.cholesky
+
+    def spy(k, jitter=None, ladder=False):
+        l, level = kernel(k, jitter, ladder)
+        seen.append((k, jitter, ladder, level))
+        return l, level
+
+    P.ops.cholesky = spy
+    try:
+        with torch.no_grad():
+            P.M.compute_layer_states(model.params, model.consts, model.config)
+    finally:
+        P.ops.cholesky = kernel
+    check(len(seen) == model.config.num_fidelities, f"{label}: {len(seen)} Kzz factorizations")
+    for ell, (k, jitter, ladder, level) in enumerate(seen):
+        jit = torch.as_tensor(jitter, dtype=k.dtype, device=k.device).expand(k.shape[0]).contiguous()
+        _, want = P.chol.cholesky_plain(k, jit, ladder)
+        print(f"[{label}] first training step, layer {ell} Kzz ({tuple(k.shape)}): K1 rungs "
+              f"{level.tolist()}, plain rungs {want.tolist()}", flush=True)
+        check(torch.equal(level, want), f"{label}: layer {ell} K1 rungs {level.tolist()} differ "
+              f"from the plain version's {want.tolist()}")
+
+
 def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     """One BO iteration's model side at full width: training, then JESMOC
     (Pareto sampling + conditioned training), the all-fidelity candidate
@@ -369,6 +445,7 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
         return fitter
 
     fitter, t_init, _, _, _ = staged(P, init)
+    first_step_rungs(P, label, fitter, blackboxes)
     _, t_train, k1_train, esc_train, k2_train = staged(P, fitter.train_mfdgps)
     m = fitter.x_train.shape[0]
     steps = 0
@@ -378,13 +455,15 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
             f"[{label}] phase {st['phase']}: {st['epochs']} steps in {st['seconds']:.3f} s = "
             f"{st['epochs'] / st['seconds']:.2f} steps/s; neg-ELBO first {st['first']:.6g} "
             f"last {st['last']:.6g}; K1 launches {st['chol_launches']}; "
-            f"ladder escalations {st['escalations']}",
+            f"ladder escalations {st['escalations']} "
+            f"({st['escalations'] / max(st['chol_launches'], 1):.3f} per launch)",
             flush=True,
         )
         check(np.isfinite(st["last"]), f"{label}: non-finite loss")
     print(f"[{label}] m={m} blackboxes={len(blackboxes)} init {t_init:.3f} s; training "
           f"{t_train:.3f} s, K1 launches {k1_train} for {steps} steps, ladder escalations "
-          f"{esc_train}, K2 launches {k2_train}", flush=True)
+          f"{esc_train} ({esc_train / max(k1_train, 1):.3f} per launch), K2 launches {k2_train}",
+          flush=True)
     leaves = P.tree_leaves(trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes]).params)
     check(all(bool(torch.isfinite(t).all()) for t in leaves), f"{label}: non-finite params")
     check(k1_train >= 2 * steps, f"{label}: K1 launched {k1_train} times for {steps} steps")
@@ -402,7 +481,8 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     print(f"[{label}] conditioned training: {cond_iters} steps in {cond['seconds']:.3f} s = "
           f"{cond_iters / cond['seconds']:.2f} steps/s; loss first {cond['first']:.6g} last "
           f"{cond['last']:.6g}; K1 launches {cond['chol_launches']}; ladder escalations "
-          f"{cond['escalations']}", flush=True)
+          f"{cond['escalations']} ({cond['escalations'] / max(cond['chol_launches'], 1):.3f} per "
+          "launch)", flush=True)
     check(sol.num_valid >= 1, f"{label}: empty Pareto set")
     check(np.isfinite(cond["last"]), f"{label}: non-finite conditioned loss")
     check(cond["chol_launches"] >= 2 * cond_iters,
@@ -520,9 +600,10 @@ def main() -> int:
         from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
         from mobocmf_tpu_torch.fit import trainer
         from mobocmf_tpu_torch.kernels import rbf
-        from mobocmf_tpu_torch.linalg import chol, fused_svgp
+        from mobocmf_tpu_torch.linalg import chol, fused_svgp, ops
         from mobocmf_tpu_torch.linalg.ops import ladder_jitter
         from mobocmf_tpu_torch.models import mfdgp as M
+        from mobocmf_tpu_torch.profile_chol import device_ms
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
     except ImportError as exc:
@@ -543,8 +624,8 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}", flush=True)
 
         P = SimpleNamespace(BlackBoxMFDGPFitter=BlackBoxMFDGPFitter, trainer=trainer,
-                            chol=chol, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
-                            tree_map=tree_map,
+                            chol=chol, ops=ops, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
+                            tree_map=tree_map, device_ms=device_ms,
                             JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
                             optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
                             recommendation_model_pass=recommendation_model_pass)
@@ -561,6 +642,7 @@ def main() -> int:
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
         run_b = run_slice(P, "b128", bench128, 120, 50, COND_ITERS)
+        time_k1(P, k1)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

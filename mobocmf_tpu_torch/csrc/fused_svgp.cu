@@ -13,9 +13,11 @@
 // A failed pivot gives NaN from that pivot on (K1's contract), never a trap.
 //
 // Design: three launches on the caller's stream.
-//   1. gram_factor_kernel, one cluster of CLUSTER blocks per state: the
-//      Gram's lower triangle into the scratch factor, then K1's cluster
-//      factorization (chol_factor.cuh) with no ladder.
+//   1. gram_factor_kernel, one cluster per state under K1's plan for M:
+//      the Gram's lower triangle staged straight into the factor's storage
+//      (the cluster's shared memory where it fits, else the scratch
+//      factor), K1's cluster factorization (chol_factor.cuh) with no
+//      ladder, and L written to the scratch factor for launches 2-3.
 //   2. solve_kernel<false>, one block per (state, 32 right-hand sides):
 //      W_ls | w_m = L^{-1} [L_S | m] into a (B, M, M+1) scratch.
 //   3. solve_kernel<true>, one block per (state, 32 columns of x): K_zx in
@@ -69,29 +71,31 @@ __device__ __forceinline__ T rbf(const T* u, const T* v, const T* ls, T os, int 
   return os * Num<T>::ex(T(-0.5) * d2);
 }
 
+// K + jitter * I, lower triangle, from the direct differences
 template <typename T>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
-    gram_factor_kernel(Args<T> a) {
-  __shared__ T D[NB][NB + 1];
-  __shared__ T PA[TILE][NB + 1];
-  __shared__ T PBs[TILE][NB + 1];
-  __shared__ int failed;
+struct Gram {
+  const T* z;
+  const T* ls;
+  T os, jit;
+  int d;
+  __device__ T operator()(int r, int c) const {
+    return rbf<T>(z + (size_t)r * d, z + (size_t)c * d, ls, os, d) + (r == c ? jit : T(0));
+  }
+};
+
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS) gram_factor_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int s = blockIdx.x / CLUSTER;
-  const int m = a.m, d = a.d;
-  const T* ls = a.ls + (size_t)s * d;
-  const T os = a.os[s], jit = a.jitter[s];
-  T* L = a.fac + (size_t)s * m * m;
-
-  for (int i = rank; i < m; i += CLUSTER)
-    for (int j = threadIdx.x; j <= i; j += THREADS)
-      L[(size_t)i * m + j] =
-          rbf<T>(a.z + (size_t)i * d, a.z + (size_t)j * d, ls, os, d) + (i == j ? jit : T(0));
-  cluster_sync(cluster);
-  factor<T>(L, m, true, cluster, D, PA, PBs, &failed);
-  zero_upper<T>(L, m, rank);
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int s = blockIdx.x / csize;
+  T* L = a.fac + (size_t)s * a.m * a.m;
+  Work<T> w = carve<T>(smem);
+  const Store<T, RESIDENT> S = make_store<T, RESIDENT>(smem, L, a.m, cluster);
+  stage<T, RESIDENT>(S, csize, Gram<T>{a.z, a.ls + (size_t)s * a.d, a.os[s], a.jitter[s], a.d});
+  factor<T, RESIDENT>(S, OUTER, true, cluster, w);
+  write_out<T, RESIDENT>(S, L, csize);
 }
 
 // X <- L^{-1} X on the columns [c0, c0 + CT) of the (M, ldx) row-major
@@ -254,15 +258,17 @@ __global__ void __launch_bounds__(THREADS) solve_kernel(Args<T> a) {
 }
 
 template <typename T>
-int launch(const Args<T>& a, void* stream) {
-  if (a.batch <= 0 || a.m <= 0 || a.n <= 0 || a.d <= 0 || a.batch > 65535)
+int launch(const Args<T>& a, int csize, int resident, int smem, void* stream) {
+  if (a.batch <= 0 || a.m <= 0 || a.n <= 0 || a.d <= 0 || a.batch > 65535 ||
+      smem < smem_bytes<T>(a.m, csize, resident))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gram_factor_kernel<T><<<a.batch * CLUSTER, THREADS, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ret =
+      resident ? launch_cluster(gram_factor_kernel<T, true>, a.batch * csize, csize, smem, st, a)
+               : launch_cluster(gram_factor_kernel<T, false>, a.batch * csize, csize, smem, st, a);
+  if (ret != 0) return ret;
   solve_kernel<T, false><<<dim3((a.m + 1 + CT - 1) / CT, a.batch), THREADS, 0, st>>>(a);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   solve_kernel<T, true><<<dim3((a.n + CT - 1) / CT, a.batch), THREADS, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -271,9 +277,9 @@ int launch(const Args<T>& a, void* stream) {
 template <typename T>
 int entry(const T* z, const T* x, const T* mean, const T* ls_chol, const T* ls, const T* os,
           const T* jitter, T* fac, T* wls, T* work, T* mu, T* var, int batch, int m, int n,
-          int d, void* stream) {
+          int d, int csize, int resident, int smem, void* stream) {
   Args<T> a{z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m, n, d};
-  return launch<T>(a, stream);
+  return launch<T>(a, csize, resident, smem, stream);
 }
 
 }  // namespace
@@ -283,23 +289,26 @@ extern "C" {
 // z (m, d), x (n, d), mean (batch, m), ls_chol (batch, m, m), ls (batch, d),
 // os (batch,), jitter (batch,): inputs, row-major and contiguous.
 // fac (batch, m, m), wls (batch, m, m+1), work (batch, m, n): scratch.
-// mu, var (batch, n): outputs. Launches the three kernels on `stream` and
-// returns the first CUDA launch error (0 = ok).
+// mu, var (batch, n): outputs. csize, resident, smem: K1's plan for m
+// (linalg/chol.py::plan), used by the Gram + factor launch. Launches the
+// three kernels on `stream` and returns the first CUDA launch error (0 = ok),
+// or -2 when the card cannot hold one cluster of the plan.
 int mobocmf_fused_svgp_f32(const float* z, const float* x, const float* mean,
                            const float* ls_chol, const float* ls, const float* os,
                            const float* jitter, float* fac, float* wls, float* work, float* mu,
-                           float* var, int batch, int m, int n, int d, void* stream) {
+                           float* var, int batch, int m, int n, int d, int csize,
+                           int resident, int smem, void* stream) {
   return entry<float>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m, n,
-                      d, stream);
+                      d, csize, resident, smem, stream);
 }
 
 int mobocmf_fused_svgp_f64(const double* z, const double* x, const double* mean,
                            const double* ls_chol, const double* ls, const double* os,
                            const double* jitter, double* fac, double* wls, double* work,
                            double* mu, double* var, int batch, int m, int n, int d,
-                           void* stream) {
+                           int csize, int resident, int smem, void* stream) {
   return entry<double>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m,
-                       n, d, stream);
+                       n, d, csize, resident, smem, stream);
 }
 
 }  // extern "C"

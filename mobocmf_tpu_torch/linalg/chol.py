@@ -17,6 +17,13 @@ and neither raises. With `ladder`, the starting jitter is floored at
 j1 = max(100*j0, 256*eps*scale), then j2 = max(100*j1, sqrt(eps)*scale),
 scale = mean |diag(a)|, exactly _rescue's per-element semantics.
 
+`plan(n, dtype)` is the launch plan of the kernel for one n x n matrix:
+the cluster size (8 thread blocks up to n = 256, 16 above), the storage of
+the working factor (the cluster's shared memory where the lower triangle
+in 32x32 tiles fits, else the output buffer in L2) and the dynamic shared
+memory per block. It mirrors csrc/chol_factor.cuh::smem_bytes, which the
+launch checks; K2 (linalg/fused_svgp.py) factorizes under the same plan.
+
 Counters: `launches` counts kernel launches (CUDA path only);
 `escalations()` counts factorizations that climbed the ladder, summed on
 the device without a host read until asked.
@@ -25,7 +32,8 @@ the device without a host read until asked.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -33,7 +41,61 @@ import torch
 launches = 0
 _escalated: Dict[torch.device, torch.Tensor] = {}
 
-_C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+# csrc/chol_factor.cuh: tile edge, tiles per outer panel, update unit rows,
+# and the staging workspace in words (two slices of UNIT x (NB + 1), the
+# diagonal tile, its reciprocal pivots)
+NB, OUTER, UNIT = 32, 4, 64
+WORK_WORDS = 2 * UNIT * (NB + 1) + NB * (NB + 1) + NB
+# shared memory a block may use on an H100 (opt-in limit), and a bound on
+# the kernels' static shared memory (the reduction slots)
+MAX_SMEM_PER_BLOCK = 232_448
+STATIC_SMEM_BYTES = 128
+# returned by the C launch when the card cannot hold one cluster of the plan
+NOT_SCHEDULABLE = -2
+
+
+class Plan(NamedTuple):
+    """Launch plan of K1 (and K2's factor) for one n x n matrix."""
+
+    cluster: int  # thread blocks per matrix
+    resident: bool  # the factor in the cluster's shared memory (else in L2)
+    smem_bytes: int  # dynamic shared memory per block
+    outer: int = OUTER  # 32-wide tiles per outer panel
+
+
+def smem_bytes(n: int, itemsize: int, cluster: int, resident: bool) -> int:
+    """Dynamic shared memory per block: the staging workspace, and with the
+    resident storage the block's share of the lower triangle's tiles."""
+    nt = -(-n // NB)
+    slots = -(-(nt * (nt + 1) // 2) // cluster)
+    return itemsize * (WORK_WORDS + (slots * NB * NB if resident else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, dtype: torch.dtype) -> Plan:
+    """The kernel's plan for an n x n matrix of `dtype` (plain Python)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    cluster = 8 if n <= 256 else 16
+    resident = smem_bytes(n, itemsize, cluster, True) + STATIC_SMEM_BYTES <= MAX_SMEM_PER_BLOCK
+    return Plan(cluster, resident, smem_bytes(n, itemsize, cluster, resident))
+
+
+def launch_error(what: str, err: int) -> RuntimeError:
+    if err == NOT_SCHEDULABLE:
+        return RuntimeError(f"{what}: the card cannot hold one thread-block cluster of the plan")
+    return RuntimeError(f"{what}: the CUDA kernel failed to launch (CUDA error {err})")
+
+
+def max_active_clusters(pl: Plan, dtype: torch.dtype) -> int:
+    """cudaOccupancyMaxActiveClusters of the kernel under `pl` (CUDA only)."""
+    from mobocmf_tpu_torch import _build
+
+    fn = _build.load("chol").mobocmf_chol_max_clusters
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(int(dtype == torch.float64), pl.cluster, int(pl.resident), pl.smem_bytes)
 
 
 def reset_counts() -> None:
@@ -84,26 +146,35 @@ def cholesky_plain(
     return l, level
 
 
-def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool):
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The C launch function of the kernel for `dtype`, typed."""
     from mobocmf_tpu_torch import _build
 
+    lib = _build.load("chol")
+    fn = lib.mobocmf_chol_f32 if dtype == torch.float32 else lib.mobocmf_chol_f64
+    fn.argtypes = _C_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool, pl: Plan = None):
     global launches
     if not a.is_contiguous():
         raise ValueError("cholesky: the CUDA kernel takes a contiguous (B, n, n) tensor")
-    lib = _build.load("chol")
-    fn = lib.mobocmf_chol_f32 if a.dtype == torch.float32 else lib.mobocmf_chol_f64
-    fn.argtypes = _C_ARGTYPES
-    fn.restype = ctypes.c_int
+    pl = plan(a.shape[-1], a.dtype) if pl is None else pl
+    fn = _entry(a.dtype)
     out = torch.empty_like(a)
     level = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(
             a.data_ptr(), out.data_ptr(), jitter.data_ptr(), level.data_ptr(),
-            a.shape[0], a.shape[-1], int(ladder), stream,
+            a.shape[0], a.shape[-1], int(ladder), pl.cluster, int(pl.resident), pl.smem_bytes,
+            pl.outer, stream,
         )
     if err != 0:
-        raise RuntimeError(f"cholesky: the CUDA kernel failed to launch (CUDA error {err})")
+        raise launch_error("cholesky", err)
     launches += 1
     return out, level
 

@@ -29,14 +29,14 @@ from typing import Tuple
 import torch
 
 from mobocmf_tpu_torch.core.config import MIN_VARIANCE
-from mobocmf_tpu_torch.linalg.chol import cholesky_plain
+from mobocmf_tpu_torch.linalg.chol import cholesky_plain, launch_error, plan
 
 # wrapper calls that launched csrc/fused_svgp.cu since the last reset_counts()
 launches = 0
 # device kernels per call: Gram + factor, the [L_S | m] solve, the predictive
 KERNELS_PER_CALL = 3
 
-_C_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_C_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -95,16 +95,17 @@ def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter):
     work = torch.empty((batch, m, n), dtype=z.dtype, device=z.device)
     mu = torch.empty((batch, n), dtype=z.dtype, device=z.device)
     var = torch.empty((batch, n), dtype=z.dtype, device=z.device)
+    pl = plan(m, z.dtype)  # the Gram's factor runs under K1's plan
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = fn(
             z.data_ptr(), x.data_ptr(), mean.data_ptr(), ls_chol.data_ptr(),
             lengthscale.data_ptr(), outputscale.data_ptr(), jitter.data_ptr(),
             fac.data_ptr(), wls.data_ptr(), work.data_ptr(), mu.data_ptr(), var.data_ptr(),
-            batch, m, n, d, stream,
+            batch, m, n, d, pl.cluster, int(pl.resident), pl.smem_bytes, stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_rbf_svgp_forward: the CUDA kernel failed to launch (CUDA error {err})")
+        raise launch_error("fused_rbf_svgp_forward", err)
     launches += 1
     return mu, var
 

@@ -49,6 +49,60 @@ def test_kernel_matches_plain(cuda_device, dtype, batch, n):
     assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
 
 
+def _check_against_plain(a, jit, got, level, dtype):
+    want, want_level = chol.cholesky_plain(a, jit, True)
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    a_j = a.double() + jit.double()[:, None, None] * eye
+    recon = ((got.double() @ got.double().mT - a_j).abs().max() / a_j.abs().max()).item()
+    tol_rel, tol_recon = (1e-4, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+    assert rel < tol_rel and recon < tol_recon, (rel, recon)
+    assert torch.equal(level, want_level)
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+
+
+# both sides of the resident / L2 boundary of plan(), both cluster sizes,
+# ragged n and n below one tile
+@pytest.mark.parametrize("dtype,batch,n,cluster,resident", [
+    (torch.float32, 2, 1, 8, True),
+    (torch.float32, 2, 31, 8, True),
+    (torch.float32, 3, 256, 8, True),
+    (torch.float32, 3, 512, 16, True),
+    (torch.float32, 2, 1000, 16, True),
+    (torch.float32, 2, 1024, 16, True),
+    (torch.float32, 2, 1280, 16, False),
+    (torch.float64, 2, 200, 8, True),
+    (torch.float64, 2, 512, 16, True),
+    (torch.float64, 2, 768, 16, True),
+    (torch.float64, 2, 1024, 16, False),
+])
+def test_kernel_plan_storage_and_cluster(cuda_device, dtype, batch, n, cluster, resident):
+    pl = chol.plan(n, dtype)
+    assert (pl.cluster, pl.resident) == (cluster, resident)
+    assert chol.max_active_clusters(pl, dtype) >= 1
+    a = _spd(batch, n, n + 1, dtype, cuda_device)
+    jit = torch.full((batch,), 1e-6, dtype=dtype, device=cuda_device)
+    chol.reset_counts()
+    got, level = chol.cholesky(a, jitter=jit, ladder=True)
+    assert chol.launches == 1
+    _check_against_plain(a, jit, got, level, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [200, 384])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_kernel_forced_storage_agrees(cuda_device, dtype, n, cluster):
+    """The same matrices through both storages and both cluster sizes."""
+    a = _spd(3, n, 5, dtype, cuda_device)
+    jit = torch.full((3,), 1e-6, dtype=dtype, device=cuda_device)
+    size = torch.finfo(dtype).bits // 8
+    for resident in (True, False):
+        pl = chol.Plan(cluster, resident, chol.smem_bytes(n, size, cluster, resident))
+        got, level = chol._launch(a, jit, True, pl)
+        _check_against_plain(a, jit, got, level, dtype)
+
+
 def test_kernel_nan_on_indefinite_and_ladder(cuda_device):
     a = _spd(3, 256, 1, torch.float32, cuda_device)
     a[1, 100, 100] = -1.0e4
