@@ -15,8 +15,12 @@
    wrapper's call time beside it), and reads the cost of one panel step
    from the slope of time against n/32;
 3. holds K2 (the fused RBF-SVGP predictive) against its plain PyTorch
-   version at the JAX kernel test's problem and at the slice's shapes, f32
-   and f64, and times both (no single PyTorch call computes K2's function);
+   version at the JAX kernel test's problem, at the slice's shapes and at
+   shapes that take every stripe width of its plan (printed per shape),
+   f32 and f64, and times both (no single PyTorch call computes K2's
+   function); at the three shapes of the main path it prints the device
+   time of each of K2's launches and of one torch.linalg.solve_triangular
+   on the same factor and right-hand sides (the solves' yardstick);
 4. checks the f64 CUDA path against the port's CPU path (which the CPU
    tests hold against the JAX package) on a small problem, and the K2
    route of the acquisition predictive against the plain route at f64;
@@ -230,18 +234,6 @@ def k2_bound_ms(batch: int, m: int, n: int, d: int, dtype) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k2_problem(batch, m, n, d, seed, dtype, dev):
-    """The JAX kernel test's well-posed problem (tests/test_fused_svgp_kernel.py:
-    19-35: lengthscale 0.15, outputscale 1.3, jitter 1e-2), batched."""
-    rng = np.random.default_rng(seed)
-    vals = (
-        rng.uniform(size=(m, d)), rng.uniform(size=(n, d)), rng.normal(size=(batch, m)),
-        np.tril(rng.normal(size=(batch, m, m)) * 0.05) + 0.3 * np.eye(m),
-        np.full((batch, d), 0.15), np.full((batch,), 1.3), np.full((batch,), 1e-2),
-    )
-    return [torch.as_tensor(v, dtype=dtype, device=dev) for v in vals]
-
-
 def phase_k2(P) -> dict:
     """K2 against its plain version; returns the record of each shape."""
     K2 = P.fused_svgp
@@ -253,11 +245,21 @@ def phase_k2(P) -> dict:
         ("bc512-screen", torch.float32, 6, 512, 200, 2),
         ("bc512-recommend", torch.float32, 3, 512, 1000, 2),
         ("bc512-screen", torch.float64, 6, 512, 200, 2),
+        # the stripe widths of the plan that the path's shapes do not take
+        ("wide", torch.float32, 6, 512, 1000, 2),
+        ("m1024", torch.float32, 3, 1024, 200, 2),
+        ("m2048", torch.float32, 3, 2048, 200, 2),
+        ("m1024", torch.float64, 3, 1024, 200, 2),
     ]
     records = {}
     with torch.no_grad():
         for label, dtype, b, m, n, d in shapes:
-            args = k2_problem(b, m, n, d, m + n, dtype, dev)
+            sp = K2.plan(m, n, b, dtype)
+            print(f"[k2] plan {label} {'f32' if dtype == torch.float32 else 'f64'} B={b} M={m} "
+                  f"N={n}: [L_S | m] solve W={sp.ls.width}, {sp.ls.smem_bytes} B, grid "
+                  f"{sp.ls.grid}; predictive W={sp.predict.width}, {sp.predict.smem_bytes} B, "
+                  f"grid {sp.predict.grid}", flush=True)
+            args = P.k2_problem(b, m, n, d, m + n, dtype, dev)
             mu, var = K2.fused_rbf_svgp_forward(*args)
             mu_p, var_p = K2.fused_rbf_svgp_forward_plain(*args)
             torch.cuda.synchronize()
@@ -283,25 +285,24 @@ def phase_k2(P) -> dict:
             records[(label, tag, b, m, n)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             )
-        k2_breakdown(K2, k2_problem(6, 512, 200, 2, 712, torch.float32, dev))
+        for label, b, m, n in (("bc512-screen", 6, 512, 200), ("bc512-recommend", 3, 512, 1000),
+                               ("b128-screen", 8, 128, 200)):
+            k2_breakdown(P, label, P.k2_problem(b, m, n, 2, m + n, torch.float32, dev))
     return records
 
 
-def k2_breakdown(K2, args, calls: int = 10) -> None:
-    """Device time of each of K2's three launches (torch.profiler)."""
-    K2.fused_rbf_svgp_forward(*args)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            K2.fused_rbf_svgp_forward(*args)
-        torch.cuda.synchronize()
-    per_kernel = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and "_kernel" in evt.name:
-            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-        print(f"[k2] breakdown bc512-screen f32: {us / calls:.1f} us per call in {name[:90]}",
-              flush=True)
+def k2_breakdown(P, label, args, calls: int = 10) -> None:
+    """Device time of each of K2's three launches (torch.profiler; the
+    span runs from the first launch's start to the last one's end: the
+    predictive overlaps the [L_S | m] solve), and of the solves' yardstick,
+    one torch.linalg.solve_triangular(L, [K_zx | L_S | m])."""
+    K2 = P.fused_svgp
+    split = P.launch_split(P.per_kernel_us(lambda: K2.fused_rbf_svgp_forward(*args), calls))
+    trsm = P.yardstick_us(args, calls)
+    print(f"[k2] breakdown {label} f32: Gram + factor {split['factor_us']:.1f} us, [L_S | m] "
+          f"solve {split['ls_us']:.1f} us, predictive {split['predict_us']:.1f} us per call; "
+          f"span {split['span_us']:.1f} us; yardstick solve_triangular(L, [K_zx | L_S | m]) "
+          f"{trsm:.1f} us", flush=True)
 
 
 def phase_reference(P) -> None:
@@ -604,6 +605,8 @@ def main() -> int:
         from mobocmf_tpu_torch.linalg.ops import ladder_jitter
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.profile_chol import device_ms
+        from mobocmf_tpu_torch.profile_k2 import (k2_problem, launch_split, per_kernel_us,
+                                                  yardstick_us)
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
     except ImportError as exc:
@@ -628,7 +631,9 @@ def main() -> int:
                             tree_map=tree_map, device_ms=device_ms,
                             JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
                             optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
-                            recommendation_model_pass=recommendation_model_pass)
+                            recommendation_model_pass=recommendation_model_pass,
+                            k2_problem=k2_problem, launch_split=launch_split,
+                            per_kernel_us=per_kernel_us, yardstick_us=yardstick_us)
         k1 = phase_k1(P)
         k2 = phase_k2(P)
         phase_reference(P)

@@ -12,26 +12,61 @@
 //   var = max(os_s - colsum(W_kzx^2) + colsum((W_ls^T W_kzx)^2), 1e-12)
 // A failed pivot gives NaN from that pivot on (K1's contract), never a trap.
 //
+// What bounds it on this card. The function needs about M^3/3 + 2 M^2 N
+// flops per state against a few words per flop, so the roofline says
+// operations; but at the main path's shapes (M = 128..512, N = 200..1000,
+// B = 3..8) the work is spread over a few hundred blocks at most and every
+// one of them runs at once on the 132 SMs: the time is the longest
+// block's serial chain of dependent panel steps, each a latency of shared
+// memory and L2 round trips and barriers, not the FMA rate.
+//
 // Design: three launches on the caller's stream.
 //   1. gram_factor_kernel, one cluster per state under K1's plan for M:
 //      the Gram's lower triangle staged straight into the factor's storage
 //      (the cluster's shared memory where it fits, else the scratch
 //      factor), K1's cluster factorization (chol_factor.cuh) with no
-//      ladder, and L written to the scratch factor for launches 2-3.
-//   2. solve_kernel<false>, one block per (state, 32 right-hand sides):
-//      W_ls | w_m = L^{-1} [L_S | m] into a (B, M, M+1) scratch.
-//   3. solve_kernel<true>, one block per (state, 32 columns of x): K_zx in
-//      the block, the same forward substitution, then mu, colsum(W^2) and
-//      colsum((W_ls^T W)^2) reduced in the block; writes mu and var.
-// The forward substitution is blocked by 32-row panels: the panel's
-// right-hand sides less L[panel, :p0] X[:p0] (32x32 tiles of L and X staged
-// in shared memory, 4 outputs per thread), then the 32x32 triangle, one
-// warp per column with shuffles. The columns are independent, so launch 3
-// spreads over B * ceil(N/32) blocks. FMA in the working type, no tensor
-// cores (no TF32), no library calls.
-// Bound: per state M^3/3 + M^2 (N + M + 1) + 2 M^2 N flops against
-// (M + N) d + M^2 + M + 2N words: compute-bound at the slice's shapes.
-// The factorization (launch 1) is the serial part: one cluster per state.
+//      ladder, and L written to the scratch factor.
+//   2. solve_kernel<false>: W_ls | w_m = L^{-1} [L_S | m]. One block per
+//      (stripe of W columns, state). L^{-1} L_S is lower triangular, so
+//      the stripe of columns [c0, c0 + W) starts at panel c0 / 32 and the
+//      rows above it are never solved, written or read; the last stripe
+//      holds the m column and walks every panel (it runs first).
+//   3. solve_kernel<true>: one block per (stripe of W columns of x, state):
+//      K_zx built in the block, the same solve, then mu = W^T w_m and
+//      colsum(W^2) from the resident stripe, and colsum((W_ls^T W)^2) with
+//      each warp owning whole 32-row blocks i0 of W_ls^T W (i0 paired with
+//      J - 1 - i0 so the warps' work is even), reading W_ls from L2 and W
+//      from shared memory, no block barrier inside; writes mu and var. It
+//      is a programmatic dependent launch of launch 2: its blocks start
+//      once launch 2's have all started, build and solve their stripes
+//      beside launch 2's, and wait for launch 2 to finish only before the
+//      reductions read W_ls and w_m.
+// The solve (both launches) keeps the block's stripe, all M rows by W
+// columns, in dynamic shared memory from its right-hand side to its
+// outputs, and runs right-looking by 32-row panels p:
+//   X[p] <- L[p, p]^{-1} X[p]     forward substitution, lanes as rows, each
+//                                 warp's columns as independent chains
+//   X[below p] -= L[below p, p] X[p]   each row by one thread group, its 32
+//                                      entries of L in registers
+// so a stripe's serial chain is one 32-step substitution and one short
+// update per panel, between two barriers. L's rows stream from L2 straight
+// into registers, the next row's loads in flight during this row's FMAs,
+// and the next diagonal block is copied (cp.async) into shared memory
+// during the update. The stripe width W (32, 16, 8 or 4), the shared
+// memory and the grids are the wrapper's plan (linalg/fused_svgp.py::plan),
+// checked here. FMA in the working type, no tensor cores (no TF32), no
+// library calls.
+//
+// Two builds time the design steps (mobocmf_tpu_torch/profile_k2.py):
+// -DMOBOCMF_K2_INVERSE multiplies by the inverse of each diagonal block,
+// formed once per state in launch 1, as the TPU kernel does
+// (_tri_lower_inverse_block); the default substitution is kept because the
+// inverse carries error in proportion to the block's condition (on the
+// card, an f64 state with jitter 2e-6 came out 2.0e-9 off the plain route
+// where the substitution stays within 1e-9). -DMOBOCMF_K2_FULL_LS makes
+// every stripe of launch 2 walk every panel.
+
+#include <cuda_pipeline.h>
 
 #include "chol_factor.cuh"
 
@@ -39,9 +74,10 @@ namespace {
 
 using namespace mobocmf;
 
-constexpr int CT = 32;  // right-hand-side columns per block of the solves
-constexpr int PR = 32;  // rows per panel of the forward substitution
-constexpr int ROWS = THREADS / CT;  // 8 row groups: thread (tr, tc)
+constexpr int PR = NB;        // rows per panel of the solve
+constexpr int WARPS = THREADS / 32;
+// shared memory a block may use on an H100 (opt-in limit)
+constexpr int SMEM_LIMIT = 232448;
 
 template <typename T>
 struct Args {
@@ -53,12 +89,20 @@ struct Args {
   const T* os;       // (B,) outputscales
   const T* jitter;   // (B,)
   T* fac;            // (B, M, M) scratch: the factor L
+  T* dinv;           // (B, ceil(M/32), 32, 32) scratch: the diagonal blocks' inverses
+                     // (the inverse build only)
   T* wls;            // (B, M, M+1) scratch: L^{-1} [L_S | m]
-  T* work;           // (B, M, N) scratch: L^{-1} K_zx
   T* mu;             // (B, N)
   T* var;            // (B, N)
   int batch, m, n, d;
 };
+
+// Dynamic shared memory of one solve block: the stripe and one diagonal
+// block (after the solve, the reduction slots).
+template <typename T>
+__host__ __device__ inline long solve_smem_bytes(int m, int width) {
+  return (long)sizeof(T) * ((long)m * width + NB * LDS);
+}
 
 // os * exp(-0.5 ||u/ls - v/ls||^2), inputs divided first as in the TPU kernel
 template <typename T>
@@ -83,6 +127,37 @@ struct Gram {
   }
 };
 
+// The inverse of every 32x32 diagonal block of the finished factor
+// (identity past m) into dinv, row-major tiles. Each tile is inverted by
+// the block that holds it (so no remote read outlives the factor's last
+// cluster barrier), one warp per tile: lane i holds row i of L, lane j
+// computes column j of the inverse by forward substitution, the row of L
+// it needs broadcast by shuffles. A NaN pivot gives a NaN inverse.
+#ifdef MOBOCMF_K2_INVERSE
+template <typename T, bool RESIDENT>
+__device__ void invert_diagonal(const Store<T, RESIDENT>& S, T* dinv, int csize) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int mine = 0;
+  for (int k = 0; k < S.nt; ++k) {
+    if ((RESIDENT ? S.owner(k, k) : k % csize) != S.rank) continue;
+    if (mine++ % WARPS != warp) continue;
+    T l[NB], x[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) l[j] = j <= lane ? S.get(k * NB + lane, k * NB + j) : T(0);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      T acc = i == lane ? T(1) : T(0);
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc = Num<T>::fma(-__shfl_sync(FULL, l[j], i), x[j], acc);
+      x[i] = acc / __shfl_sync(FULL, l[i], i);
+    }
+    T* out = dinv + (size_t)k * TILE_WORDS;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) out[i * NB + lane] = x[i];
+  }
+}
+#endif
+
 template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(THREADS) gram_factor_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -96,190 +171,369 @@ __global__ void __launch_bounds__(THREADS) gram_factor_kernel(Args<T> a) {
   stage<T, RESIDENT>(S, csize, Gram<T>{a.z, a.ls + (size_t)s * a.d, a.os[s], a.jitter[s], a.d});
   factor<T, RESIDENT>(S, OUTER, true, cluster, w);
   write_out<T, RESIDENT>(S, L, csize);
+#ifdef MOBOCMF_K2_INVERSE
+  invert_diagonal<T, RESIDENT>(S, a.dinv + (size_t)s * S.nt * TILE_WORDS, csize);
+#endif
 }
 
-// X <- L^{-1} X on the columns [c0, c0 + CT) of the (M, ldx) row-major
-// block X (columns >= ncols are outside the matrix). L is lower (M, M).
+// K contiguous values of T from shared memory at p, in 16-byte loads; p is
+// aligned to the load.
+template <typename T, int K>
+__device__ __forceinline__ void ld_vec(const T* p, T* v) {
+  using V = typename Vec16<T>::type;
+  constexpr int P = 16 / sizeof(T);
+  static_assert(K % P == 0, "whole 16-byte loads");
+#pragma unroll
+  for (int i = 0; i < K / P; ++i) unpack(reinterpret_cast<const V*>(p)[i], v + i * P);
+}
+
+// The 32 entries of L at src (a row of a column panel) into registers l:
+// 16-byte loads where L's rows are 16-byte aligned (vec), else one by one.
 template <typename T>
-__device__ void forward_substitute(const T* L, T* X, int m, int ldx, int c0, int ncols,
-                                   T (*Ls)[PR + 1], T (*Xs)[CT + 1]) {
-  const int tid = threadIdx.x;
-  const int tc = tid % CT, tr = tid / CT;
-  const int lane = tid % 32, warp = tid / 32;
-  const int col = c0 + tc;
-  const bool colok = col < ncols;
-  for (int p0 = 0; p0 < m; p0 += PR) {
-    const int pb = min(PR, m - p0);
-    T acc[PR / ROWS];
+__device__ __forceinline__ void load_row(const T* src, bool vec, T* l) {
+  using V = typename Vec16<T>::type;
+  constexpr int P = 16 / sizeof(T);
+  if (vec) {
 #pragma unroll
-    for (int q = 0; q < PR / ROWS; ++q) {
-      const int r = p0 + tr + ROWS * q;
-      acc[q] = (r < m && colok) ? X[(size_t)r * ldx + col] : T(0);
-    }
-    // acc -= L[p0:p0+PR, k0:k0+PR] X[k0:k0+PR, cols], every earlier panel
-    for (int k0 = 0; k0 < p0; k0 += PR) {
-      for (int e = tid; e < PR * PR; e += THREADS) {
-        const int i = e / PR, k = e % PR;
-        Ls[i][k] = (p0 + i < m) ? L[(size_t)(p0 + i) * m + k0 + k] : T(0);
-      }
-      for (int e = tid; e < PR * CT; e += THREADS) {
-        const int k = e / CT, c = e % CT;
-        Xs[k][c] = (c0 + c < ncols) ? X[(size_t)(k0 + k) * ldx + c0 + c] : T(0);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < PR; ++k) {
-        const T xv = Xs[k][tc];
+    for (int i = 0; i < PR / P; ++i) unpack(__ldg(reinterpret_cast<const V*>(src) + i), l + i * P);
+  } else {
 #pragma unroll
-        for (int q = 0; q < PR / ROWS; ++q)
-          acc[q] = Num<T>::fma(-Ls[tr + ROWS * q][k], xv, acc[q]);
-      }
-      __syncthreads();
-    }
-    // the panel's triangle: one warp per column, lane = row
-    for (int e = tid; e < PR * PR; e += THREADS) {
-      const int i = e / PR, k = e % PR;
-      Ls[i][k] = (i < pb && k <= i) ? L[(size_t)(p0 + i) * m + p0 + k] : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < PR / ROWS; ++q) Xs[tr + ROWS * q][tc] = acc[q];
-    __syncthreads();
-    for (int c = warp; c < CT; c += THREADS / 32) {
-      T v = Xs[lane][c];
-      for (int k = 0; k < pb; ++k) {
-        const T xk = __shfl_sync(FULL, v, k) / Ls[k][k];
-        if (lane == k) v = xk;
-        if (lane > k) v = Num<T>::fma(-Ls[lane][k], xk, v);
-      }
-      Xs[lane][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < PR / ROWS; ++q) {
-      const int r = p0 + tr + ROWS * q;
-      if (r < m && colok) X[(size_t)r * ldx + col] = Xs[tr + ROWS * q][tc];
-    }
-    __syncthreads();  // the panel is in X before the next one reads it
+    for (int k = 0; k < PR; ++k) l[k] = __ldg(src + k);
   }
 }
 
-template <typename T, bool PREDICT>
+// Start the copies of panel p's diagonal block into D (stride LDS) and
+// commit them: L's lower triangle of the block, or in the inverse build
+// the block's inverse.
+template <typename T>
+__device__ __forceinline__ void fetch_diag(const T* L, const T* dinv, int m, int p, T* D) {
+  const int p0 = p * PR;
+  for (int e = threadIdx.x; e < TILE_WORDS; e += THREADS) {
+    const int i = e / NB, k = e % NB;
+#ifdef MOBOCMF_K2_INVERSE
+    __pipeline_memcpy_async(D + i * LDS + k, dinv + (size_t)p * TILE_WORDS + e, sizeof(T));
+#else
+    if (p0 + i < m && k <= i)
+      __pipeline_memcpy_async(D + i * LDS + k, L + (size_t)(p0 + i) * m + p0 + k, sizeof(T));
+#endif
+  }
+  __pipeline_commit();
+}
+
+// One step k of the substitution: row k of the panel is final up to its
+// pivot; the rows below it take its product with column k of the block
+// scaled by the reciprocal pivot (L[i, k] / L[k, k], formed off the
+// chain, so a step on the chain is one shuffle and one FMA).
+template <typename T, int CPW>
+__device__ __forceinline__ void subst_step(T* v, const T* D, T rl, int lane, int k) {
+  const T lk = D[lane * LDS + k] * __shfl_sync(FULL, rl, k);
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    const T yk = __shfl_sync(FULL, v[j], k);
+    if (lane > k) v[j] = Num<T>::fma(-lk, yk, v[j]);
+  }
+}
+
+// X[p0 : p0 + pb] <- L[p, p]^{-1} X[p0 : p0 + pb] for the stripe X (M x W
+// in shared memory), D = L's diagonal block: forward substitution with
+// lanes as rows and each warp's columns (warp, warp + 8, ...) as
+// independent chains, each row scaled by its reciprocal pivot at the end.
+// A warp reads and writes only its own columns, so no block barrier. The
+// inverse build multiplies by D = the block's inverse instead.
+template <typename T, int W>
+__device__ __forceinline__ void triangle(T* X, const T* D, int p0, int pb) {
+  constexpr int CPW = (W + WARPS - 1) / WARPS;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  T v[CPW];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    const int c = warp + WARPS * j;
+    v[j] = c < W && lane < pb ? X[(p0 + lane) * W + c] : T(0);
+  }
+#ifdef MOBOCMF_K2_INVERSE
+  T acc[CPW];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) acc[j] = T(0);
+  for (int k = 0; k < pb; ++k) {
+    const T dk = D[lane * LDS + k];
+#pragma unroll
+    for (int j = 0; j < CPW; ++j) acc[j] = Num<T>::fma(dk, __shfl_sync(FULL, v[j], k), acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) v[j] = acc[j];
+#else
+  const T rl = lane < pb ? T(1) / D[lane * LDS + lane] : T(0);
+  if (pb == PR) {
+#pragma unroll
+    for (int k = 0; k < PR; ++k) subst_step<T, CPW>(v, D, rl, lane, k);
+  } else {
+    for (int k = 0; k < pb; ++k) subst_step<T, CPW>(v, D, rl, lane, k);
+  }
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) v[j] *= rl;
+#endif
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    const int c = warp + WARPS * j;
+    if (c < W && lane < pb) X[(p0 + lane) * W + c] = v[j];
+  }
+}
+
+// The stripe X (M x W, shared memory) <- L^{-1} X from panel p_first on
+// (the rows above it are zero and stay so), right-looking. Per panel p:
+// the triangle, a barrier, then every row r below the panel takes
+// X[r] -= L[r, p] X[p], thread (tr, tc) the rows tr, tr + RT, ... and the
+// TC columns tc * TC, ...; L's rows stream from L2 into registers, the
+// next row's loads issued before this row's FMAs (across the panel
+// boundary too), and the next diagonal block's copies run during the
+// update. Two barriers a panel. D: a 32 x LDS block of shared memory.
+template <typename T, int W>
+__device__ void solve_stripe(T* X, T* D, const T* L, const T* dinv, int m, int p_first) {
+  constexpr int TC = W < 8 ? W : 8;
+  constexpr int CT = W / TC;
+  constexpr int RT = THREADS / CT;
+  const int nt = (m + PR - 1) / PR;
+  const int tc = threadIdx.x % CT, tr = threadIdx.x / CT;
+  const bool vec = m % (16 / sizeof(T)) == 0;
+  // this thread's next update row nr, below panel np (np = nt: none left)
+  int np = p_first, nr = (p_first + 1) * PR + tr;
+  if (nr >= m) np = nt;
+  T nxt[PR];
+  if (np < nt) load_row<T>(L + (size_t)nr * m + np * PR, vec, nxt);
+  fetch_diag<T>(L, dinv, m, p_first, D);
+  for (int p = p_first; p < nt; ++p) {
+    const int p0 = p * PR;
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the block and the panel's rows are up to date
+    triangle<T, W>(X, D, p0, min(PR, m - p0));
+    __syncthreads();  // X[p] is final and D is free
+    if (p + 1 < nt) fetch_diag<T>(L, dinv, m, p + 1, D);
+    while (np == p) {
+      T cur[PR];
+#pragma unroll
+      for (int k = 0; k < PR; ++k) cur[k] = nxt[k];
+      const int r = nr;
+      nr += RT;
+      if (nr >= m) {
+        ++np;
+        nr = (np + 1) * PR + tr;
+        if (nr >= m) np = nt;
+      }
+      if (np < nt) load_row<T>(L + (size_t)nr * m + np * PR, vec, nxt);
+      T acc[TC];
+      ld_vec<T, TC>(X + r * W + tc * TC, acc);
+#pragma unroll
+      for (int k = 0; k < PR; ++k) {
+        T xv[TC];
+        ld_vec<T, TC>(X + (p0 + k) * W + tc * TC, xv);
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[j] = Num<T>::fma(-cur[k], xv[j], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < TC; ++j) X[r * W + tc * TC + j] = acc[j];
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Rows r .. r + U of column col of W_ls (zero past m) into av.
+template <typename T, int U>
+__device__ __forceinline__ void load_wls(const T* wls, int m, int r, int col, T* av) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    av[u] = r + u < m && col < m ? wls[(size_t)(r + u) * (m + 1) + col] : T(0);
+}
+
+template <typename T, int W, bool PREDICT>
 __global__ void __launch_bounds__(THREADS) solve_kernel(Args<T> a) {
-  __shared__ T Ls[PR][PR + 1];
-  __shared__ T Xs[PR][CT + 1];
-  __shared__ T red[3][ROWS][CT];
-
-  const int s = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
-  const int m = a.m, d = a.d;
-  const int tid = threadIdx.x;
-  const int tc = tid % CT, tr = tid / CT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (!PREDICT) asm volatile("griddepcontrol.launch_dependents;");
+  const int s = blockIdx.y, m = a.m, tid = threadIdx.x;
+  const int nt = (m + PR - 1) / PR;
+  const int ncols = PREDICT ? a.n : m + 1;
+  // launch 2 runs its last stripe (the m column, every panel) first
+  int stripe = blockIdx.x;
+  if (!PREDICT) stripe = blockIdx.x == 0 ? gridDim.x - 1 : blockIdx.x - 1;
+  const int c0 = stripe * W;
+#ifdef MOBOCMF_K2_FULL_LS
+  const int p_first = 0;
+#else
+  const int p_first = PREDICT || c0 + W > m ? 0 : c0 / PR;
+#endif
+  T* X = reinterpret_cast<T*>(smem);
+  T* D = X + (size_t)m * W;
   const T* L = a.fac + (size_t)s * m * m;
-  T* wls = a.wls + (size_t)s * m * (m + 1);
-  const int ldx = PREDICT ? a.n : m + 1;
-  const int ncols = ldx;
-  T* X = PREDICT ? a.work + (size_t)s * m * a.n : wls;
+  const T* dinv = a.dinv + (size_t)s * nt * TILE_WORDS;
 
-  // right-hand sides of this block's columns
   if (PREDICT) {
-    const T* ls = a.ls + (size_t)s * d;
+    const T* ls = a.ls + (size_t)s * a.d;
     const T os = a.os[s];
-    for (int e = tid; e < m * CT; e += THREADS) {
-      const int r = e / CT, c = c0 + e % CT;
-      if (c < ncols) X[(size_t)r * ldx + c] = rbf<T>(a.z + (size_t)r * d, a.x + (size_t)c * d, ls, os, d);
+    for (int e = tid; e < m * W; e += THREADS) {
+      const int r = e / W, col = c0 + e % W;
+      X[e] = col < ncols ? rbf<T>(a.z + (size_t)r * a.d, a.x + (size_t)col * a.d, ls, os, a.d)
+                         : T(0);
     }
   } else {
     const T* lsc = a.ls_chol + (size_t)s * m * m;
-    const T* mean = a.mean + (size_t)s * m;
-    for (int e = tid; e < m * CT; e += THREADS) {
-      const int r = e / CT, c = c0 + e % CT;
-      if (c < m) X[(size_t)r * ldx + c] = c <= r ? lsc[(size_t)r * m + c] : T(0);
-      else if (c == m) X[(size_t)r * ldx + c] = mean[r];
+    for (int e = p_first * PR * W + tid; e < m * W; e += THREADS) {
+      const int r = e / W, col = c0 + e % W;
+      X[e] = col < m ? (col <= r ? lsc[(size_t)r * m + col] : T(0))
+                     : (col == m ? a.mean[(size_t)s * m + r] : T(0));
     }
   }
-  __syncthreads();
-  forward_substitute<T>(L, X, m, ldx, c0, ncols, Ls, Xs);
-  if (!PREDICT) return;
+  solve_stripe<T, W>(X, D, L, dinv, m, p_first);
 
-  // mu = W^T w_m and colsum(W^2): rows r = tr (mod ROWS) per thread
-  const int col = c0 + tc;
-  const bool colok = col < ncols;
-  T pm = T(0), p1 = T(0), p2 = T(0);
-  if (colok) {
-    for (int r = tr; r < m; r += ROWS) {
-      const T w = X[(size_t)r * ldx + col];
-      pm = Num<T>::fma(wls[(size_t)r * (m + 1) + m], w, pm);
-      p1 = Num<T>::fma(w, w, p1);
+  T* wls = a.wls + (size_t)s * m * (m + 1);
+  if (!PREDICT) {
+    for (int e = p_first * PR * W + tid; e < m * W; e += THREADS) {
+      const int r = e / W, col = c0 + e % W;
+      if (col <= m) wls[(size_t)r * (m + 1) + col] = X[e];
+    }
+    return;
+  }
+  // launch 3 ran its solve beside launch 2 (programmatic dependent
+  // launch); W_ls and w_m are read only after launch 2 has finished
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // mu = W^T w_m and colsum(W^2): thread (g, c) sums rows g, g + G, ...
+  constexpr int G = THREADS / W;
+  const int c = tid % W, g = tid / W;
+  T pm = T(0), p1 = T(0);
+  for (int r = g; r < m; r += G) {
+    const T w = X[r * W + c];
+    pm = Num<T>::fma(wls[(size_t)r * (m + 1) + m], w, pm);
+    p1 = Num<T>::fma(w, w, p1);
+  }
+  // colsum((W_ls^T W)^2): row block i0 of W_ls^T W (rows i0*32 + lane)
+  // sums rows r >= i0*32 of W_ls (lower triangular); warp w takes the
+  // pairs (i0, nt - 1 - i0) for i0 = w, w + WARPS, ...; W_ls streams from
+  // L2 U rows ahead of the FMAs; lane c < W keeps column c's share
+  constexpr int U = 16;
+  const int lane = tid % 32, warp = tid / 32;
+  T p2 = T(0);
+  for (int pair = warp; pair < (nt + 1) / 2; pair += WARPS) {
+    for (int h = 0; h < 2; ++h) {
+      const int i0 = h == 0 ? pair : nt - 1 - pair;
+      if (h == 1 && i0 == pair) break;
+      const int col = i0 * PR + lane;
+      T acc[W], av[U];
+#pragma unroll
+      for (int j = 0; j < W; ++j) acc[j] = T(0);
+      load_wls<T, U>(wls, m, i0 * PR, col, av);
+      for (int r = i0 * PR; r < m; r += U) {
+        T an[U];
+        load_wls<T, U>(wls, m, r + U, col, an);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const T* xr = X + min(r + u, m - 1) * W;  // av is 0 past m
+#pragma unroll
+          for (int j0 = 0; j0 < W; j0 += 4) {
+            T xv[4];
+            ld_vec<T, 4>(xr + j0, xv);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[j0 + j] = Num<T>::fma(av[u], xv[j], acc[j0 + j]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) av[u] = an[u];
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const T sq = warp_sum(acc[j] * acc[j]);
+        if (lane == j) p2 += sq;
+      }
     }
   }
-  // colsum((W_ls^T W)^2): W_ls is lower, so row i of W_ls^T W sums r >= i
-  for (int i0 = 0; i0 < m; i0 += PR) {
-    T acc[PR / ROWS];
-#pragma unroll
-    for (int q = 0; q < PR / ROWS; ++q) acc[q] = T(0);
-    for (int r0 = i0; r0 < m; r0 += PR) {
-      for (int e = tid; e < PR * PR; e += THREADS) {
-        const int k = e / PR, i = e % PR;
-        Ls[k][i] = (r0 + k < m && i0 + i < m) ? wls[(size_t)(r0 + k) * (m + 1) + i0 + i] : T(0);
-      }
-      for (int e = tid; e < PR * CT; e += THREADS) {
-        const int k = e / CT, c = e % CT;
-        Xs[k][c] = (r0 + k < m && c0 + c < ncols) ? X[(size_t)(r0 + k) * ldx + c0 + c] : T(0);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < PR; ++k) {
-        const T xv = Xs[k][tc];
-#pragma unroll
-        for (int q = 0; q < PR / ROWS; ++q)
-          acc[q] = Num<T>::fma(Ls[k][tr + ROWS * q], xv, acc[q]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < PR / ROWS; ++q) p2 = Num<T>::fma(acc[q], acc[q], p2);
-  }
-  red[0][tr][tc] = pm;
-  red[1][tr][tc] = p1;
-  red[2][tr][tc] = p2;
+  T* red = D;  // the diagonal block's buffer is free after the solve
+  red[tid] = pm;
+  red[THREADS + tid] = p1;
+  if (lane < W) red[2 * THREADS + warp * W + lane] = p2;
   __syncthreads();
-  if (tid < CT && c0 + tid < ncols) {
+  if (tid < W && c0 + tid < ncols) {
     T sm = T(0), s1 = T(0), s2 = T(0);
-#pragma unroll
-    for (int g = 0; g < ROWS; ++g) {
-      sm += red[0][g][tid];
-      s1 += red[1][g][tid];
-      s2 += red[2][g][tid];
+    for (int q = 0; q < G; ++q) {
+      sm += red[q * W + tid];
+      s1 += red[THREADS + q * W + tid];
     }
+#pragma unroll
+    for (int q = 0; q < WARPS; ++q) s2 += red[2 * THREADS + q * W + tid];
     const size_t o = (size_t)s * a.n + c0 + tid;
     a.mu[o] = sm;
     a.var[o] = tmax(T(1e-12), a.os[s] - s1 + s2);  // a NaN variance stays NaN
   }
 }
 
+template <typename T, int W, bool PREDICT>
+int launch_solve(const Args<T>& a, int smem, cudaStream_t st) {
+  auto kern = solve_kernel<T, W, PREDICT>;
+  // the opt-in shared memory, once per instantiation
+  static cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int cols = PREDICT ? a.n : a.m + 1;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3((cols + W - 1) / W, a.batch);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = PREDICT ? 1 : 0;  // the predictive may start during the [L_S | m] solve
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+template <typename T, bool PREDICT>
+int launch_width(const Args<T>& a, int width, int smem, cudaStream_t st) {
+  switch (width) {
+    case 32: return launch_solve<T, 32, PREDICT>(a, smem, st);
+    case 16: return launch_solve<T, 16, PREDICT>(a, smem, st);
+    case 8: return launch_solve<T, 8, PREDICT>(a, smem, st);
+    case 4: return launch_solve<T, 4, PREDICT>(a, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int launch(const Args<T>& a, int csize, int resident, int smem, void* stream) {
+bool solve_plan_ok(int m, int width, int smem) {
+  return (width == 32 || width == 16 || width == 8 || width == 4) && smem <= SMEM_LIMIT &&
+         smem >= solve_smem_bytes<T>(m, width);
+}
+
+template <typename T>
+int launch(const Args<T>& a, int csize, int resident, int smem, int w_ls, int smem_ls,
+           int w_pred, int smem_pred, void* stream) {
   if (a.batch <= 0 || a.m <= 0 || a.n <= 0 || a.d <= 0 || a.batch > 65535 ||
-      smem < smem_bytes<T>(a.m, csize, resident))
+      smem < smem_bytes<T>(a.m, csize, resident) || !solve_plan_ok<T>(a.m, w_ls, smem_ls) ||
+      !solve_plan_ok<T>(a.m, w_pred, smem_pred))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ret =
+  int ret =
       resident ? launch_cluster(gram_factor_kernel<T, true>, a.batch * csize, csize, smem, st, a)
                : launch_cluster(gram_factor_kernel<T, false>, a.batch * csize, csize, smem, st, a);
   if (ret != 0) return ret;
-  solve_kernel<T, false><<<dim3((a.m + 1 + CT - 1) / CT, a.batch), THREADS, 0, st>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  solve_kernel<T, true><<<dim3((a.n + CT - 1) / CT, a.batch), THREADS, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  ret = launch_width<T, false>(a, w_ls, smem_ls, st);
+  if (ret != 0) return ret;
+  return launch_width<T, true>(a, w_pred, smem_pred, st);
 }
 
 template <typename T>
 int entry(const T* z, const T* x, const T* mean, const T* ls_chol, const T* ls, const T* os,
-          const T* jitter, T* fac, T* wls, T* work, T* mu, T* var, int batch, int m, int n,
-          int d, int csize, int resident, int smem, void* stream) {
-  Args<T> a{z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m, n, d};
-  return launch<T>(a, csize, resident, smem, stream);
+          const T* jitter, T* fac, T* dinv, T* wls, T* mu, T* var, int batch, int m, int n,
+          int d, int csize, int resident, int smem, int w_ls, int smem_ls, int w_pred,
+          int smem_pred, void* stream) {
+  Args<T> a{z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m, n, d};
+  return launch<T>(a, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
 }
 
 }  // namespace
@@ -288,27 +542,32 @@ extern "C" {
 
 // z (m, d), x (n, d), mean (batch, m), ls_chol (batch, m, m), ls (batch, d),
 // os (batch,), jitter (batch,): inputs, row-major and contiguous.
-// fac (batch, m, m), wls (batch, m, m+1), work (batch, m, n): scratch.
-// mu, var (batch, n): outputs. csize, resident, smem: K1's plan for m
-// (linalg/chol.py::plan), used by the Gram + factor launch. Launches the
-// three kernels on `stream` and returns the first CUDA launch error (0 = ok),
-// or -2 when the card cannot hold one cluster of the plan.
+// fac (batch, m, m), dinv (batch, ceil(m/32), 32, 32), wls (batch, m, m+1):
+// scratch. mu, var (batch, n): outputs. csize, resident, smem: K1's plan
+// for m (linalg/chol.py::plan), used by the Gram + factor launch. w_ls,
+// smem_ls and w_pred, smem_pred: the stripe width and dynamic shared memory
+// of the [L_S | m] solve and of the predictive (linalg/fused_svgp.py::plan).
+// Launches the three kernels on `stream` and returns the first CUDA launch
+// error (0 = ok), cudaErrorInvalidValue for a plan that cannot launch, or
+// -2 when the card cannot hold one cluster of the factor's plan.
 int mobocmf_fused_svgp_f32(const float* z, const float* x, const float* mean,
                            const float* ls_chol, const float* ls, const float* os,
-                           const float* jitter, float* fac, float* wls, float* work, float* mu,
-                           float* var, int batch, int m, int n, int d, int csize,
-                           int resident, int smem, void* stream) {
-  return entry<float>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m, n,
-                      d, csize, resident, smem, stream);
+                           const float* jitter, float* fac, float* dinv, float* wls, float* mu,
+                           float* var, int batch, int m, int n, int d, int csize, int resident,
+                           int smem, int w_ls, int smem_ls, int w_pred, int smem_pred,
+                           void* stream) {
+  return entry<float>(z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m, n,
+                      d, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
 }
 
 int mobocmf_fused_svgp_f64(const double* z, const double* x, const double* mean,
                            const double* ls_chol, const double* ls, const double* os,
-                           const double* jitter, double* fac, double* wls, double* work,
-                           double* mu, double* var, int batch, int m, int n, int d,
-                           int csize, int resident, int smem, void* stream) {
-  return entry<double>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, work, mu, var, batch, m,
-                       n, d, csize, resident, smem, stream);
+                           const double* jitter, double* fac, double* dinv, double* wls,
+                           double* mu, double* var, int batch, int m, int n, int d, int csize,
+                           int resident, int smem, int w_ls, int smem_ls, int w_pred,
+                           int smem_pred, void* stream) {
+  return entry<double>(z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m,
+                       n, d, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
 }
 
 }  // extern "C"

@@ -17,6 +17,13 @@ csrc/fused_svgp.cu on a CUDA tensor and runs `fused_rbf_svgp_forward_plain`,
 the same contract in PyTorch ops, on a CPU tensor. There is no fallback from
 one to the other. A state whose Gram does not factorize gives NaN.
 
+`plan(m, n, batch, dtype)` is the launch plan of the kernel's two solves
+(the [L_S | m] solve and the predictive): each block keeps a stripe of W
+columns, all M rows, in shared memory, so W is the widest of 32, 16, 8, 4
+whose stripe and one diagonal block of L fit a block, narrowed while a
+wider one leaves SMs without a predictive block. It mirrors
+csrc/fused_svgp.cu::solve_smem_bytes, which the launch checks.
+
 Counters: `launches` counts wrapper calls that launched the kernels (each
 call is KERNELS_PER_CALL device kernels).
 """
@@ -24,19 +31,63 @@ call is KERNELS_PER_CALL device kernels).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from mobocmf_tpu_torch.core.config import MIN_VARIANCE
-from mobocmf_tpu_torch.linalg.chol import cholesky_plain, launch_error, plan
+from mobocmf_tpu_torch.linalg import chol
+from mobocmf_tpu_torch.linalg.chol import cholesky_plain, launch_error
 
 # wrapper calls that launched csrc/fused_svgp.cu since the last reset_counts()
 launches = 0
 # device kernels per call: Gram + factor, the [L_S | m] solve, the predictive
 KERNELS_PER_CALL = 3
 
-_C_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_C_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+# csrc/fused_svgp.cu: stripe widths; the H100's SM count
+WIDTHS = (32, 16, 8, 4)
+SMS = 132
+
+
+class Solve(NamedTuple):
+    """Launch plan of one solve: stripe width, dynamic shared memory per
+    block, grid (stripes, states)."""
+
+    width: int
+    smem_bytes: int
+    grid: Tuple[int, int]
+
+
+class Plan(NamedTuple):
+    ls: Solve  # W_ls | w_m = L^{-1} [L_S | m]: M + 1 columns
+    predict: Solve  # L^{-1} K_zx and the reductions: N columns
+
+
+def solve_smem_bytes(m: int, width: int, itemsize: int) -> int:
+    """The stripe (m x width) and one 32 x 33 diagonal block."""
+    return itemsize * (m * width + chol.NB * (chol.NB + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, n: int, batch: int, dtype: torch.dtype) -> Plan:
+    """The plan of the two solve launches for B = batch states of M = m
+    inducing points at N = n inputs (plain Python). Both take one stripe
+    width: the predictive runs beside the [L_S | m] solve (a programmatic
+    dependent launch) and the two share the SMs, so W is the widest of 32,
+    16, 8, 4 that fits a block and still gives the predictive one block
+    per SM (B * ceil(N / W) >= SMS); the narrowest that fits where none
+    does."""
+    itemsize = torch.finfo(dtype).bits // 8
+    fits = [w for w in WIDTHS
+            if solve_smem_bytes(m, w, itemsize) + chol.STATIC_SMEM_BYTES <= chol.MAX_SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(f"fused_rbf_svgp_forward: no stripe of M = {m} rows fits a block")
+    w = next((w for w in fits if -(-n // w) * batch >= SMS), fits[-1])
+    smem = solve_smem_bytes(m, w, itemsize)
+    return Plan(Solve(w, smem, (-(-(m + 1) // w), batch)), Solve(w, smem, (-(-n // w), batch)))
 
 
 def reset_counts() -> None:
@@ -80,29 +131,38 @@ def fused_rbf_svgp_forward_plain(
     return mu, torch.clamp(outputscale[:, None] - v1 + v2, min=MIN_VARIANCE)
 
 
-def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter):
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype, defines: Tuple[str, ...] = ()):
+    """The C launch function of the kernels for `dtype`, typed."""
     from mobocmf_tpu_torch import _build
 
+    lib = _build.load("fused_svgp", defines)
+    fn = lib.mobocmf_fused_svgp_f32 if dtype == torch.float32 else lib.mobocmf_fused_svgp_f64
+    fn.argtypes = _C_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = None,
+            defines: Tuple[str, ...] = ()):
     global launches
     batch, m = mean.shape
     n, d = x.shape
-    lib = _build.load("fused_svgp")
-    fn = lib.mobocmf_fused_svgp_f32 if z.dtype == torch.float32 else lib.mobocmf_fused_svgp_f64
-    fn.argtypes = _C_ARGTYPES
-    fn.restype = ctypes.c_int
-    fac = torch.empty((batch, m, m), dtype=z.dtype, device=z.device)
-    wls = torch.empty((batch, m, m + 1), dtype=z.dtype, device=z.device)
-    work = torch.empty((batch, m, n), dtype=z.dtype, device=z.device)
-    mu = torch.empty((batch, n), dtype=z.dtype, device=z.device)
-    var = torch.empty((batch, n), dtype=z.dtype, device=z.device)
-    pl = plan(m, z.dtype)  # the Gram's factor runs under K1's plan
+    sp = plan(m, n, batch, z.dtype) if sp is None else sp
+    fn = _entry(z.dtype, defines)
+    new = functools.partial(torch.empty, dtype=z.dtype, device=z.device)
+    fac, wls = new((batch, m, m)), new((batch, m, m + 1))
+    dinv = new((batch, -(-m // chol.NB), chol.NB, chol.NB))  # read by the inverse build only
+    mu, var = new((batch, n)), new((batch, n))
+    pl = chol.plan(m, z.dtype)  # the Gram's factor runs under K1's plan
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = fn(
             z.data_ptr(), x.data_ptr(), mean.data_ptr(), ls_chol.data_ptr(),
             lengthscale.data_ptr(), outputscale.data_ptr(), jitter.data_ptr(),
-            fac.data_ptr(), wls.data_ptr(), work.data_ptr(), mu.data_ptr(), var.data_ptr(),
-            batch, m, n, d, pl.cluster, int(pl.resident), pl.smem_bytes, stream,
+            fac.data_ptr(), dinv.data_ptr(), wls.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            batch, m, n, d, pl.cluster, int(pl.resident), pl.smem_bytes,
+            sp.ls.width, sp.ls.smem_bytes, sp.predict.width, sp.predict.smem_bytes, stream,
         )
     if err != 0:
         raise launch_error("fused_rbf_svgp_forward", err)

@@ -32,28 +32,18 @@ from pathlib import Path
 
 import torch
 
+from mobocmf_tpu_torch.profile_k2 import per_kernel_us
+
 SHAPES = [(4, 128), (1, 512), (3, 512), (3, 1024), (3, 1536), (3, 2048)]
 SWEEP_N = (128, 200, 256, 384, 512, 768, 1024)
 
 
 def device_ms(fn, reps: int, name: str = "") -> float:
-    """Device time per call of `fn`: the time of the card's kernels and
-    copies whose name contains `name` (all of them by default), summed over
-    `reps` calls under torch.profiler. Unlike a CUDA-event time over a loop
-    of calls, it does not count the host's time between launches. A first
-    round of `reps` calls runs traced and is thrown away (the profiler's
-    warm-up): the first kernels of a session can go unrecorded."""
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                schedule=schedule) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    total = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                if evt.device_type == torch.autograd.DeviceType.CUDA and name in evt.name)
-    return total / reps / 1e3
+    """Device time per call of `fn` in ms: the time of the card's kernels
+    and copies whose name contains `name` (all of them by default), under
+    torch.profiler (per_kernel_us). Unlike a CUDA-event time over a loop of
+    calls, it does not count the host's time between launches."""
+    return sum(t for k, t in per_kernel_us(fn, reps).items() if k != "span" and name in k) / 1e3
 
 
 PHASES = ("sync_top", "diag", "panel", "sync_mid", "inner", "sync_outer", "outer")

@@ -180,6 +180,54 @@ def test_k2_matches_plain(cuda_device, dtype, batch, m, n, d):
     torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
 
 
+# every stripe width of each solve, forced, with ragged M and N (the last
+# panel shorter than 32 rows, the last stripe narrower than W)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [32, 16, 8, 4])
+@pytest.mark.parametrize("batch,m,n", [(2, 100, 45), (3, 257, 70), (1, 31, 5)])
+def test_k2_every_stripe_width(cuda_device, dtype, width, batch, m, n):
+    args = _k2_problem(batch, m, n, 2, dtype, cuda_device)
+    size = torch.finfo(dtype).bits // 8
+
+    def solve(cols):
+        return fused_svgp.Solve(width, fused_svgp.solve_smem_bytes(m, width, size),
+                                (-(-cols // width), batch))
+
+    sp = fused_svgp.Plan(solve(m + 1), solve(n))
+    with torch.no_grad():
+        mu, var = fused_svgp._launch(*args, sp=sp)
+        mu_p, var_p = fused_svgp.fused_rbf_svgp_forward_plain(*args)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 1e-10
+    torch.testing.assert_close(mu, mu_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
+
+
+# the plan's own choice at the main path's shapes and at each M the plan
+# narrows the stripe for
+@pytest.mark.parametrize("dtype,batch,m,n", [
+    (torch.float32, 6, 512, 1000), (torch.float32, 3, 512, 1000), (torch.float32, 3, 1024, 200),
+    (torch.float32, 3, 2048, 200), (torch.float64, 3, 1024, 200), (torch.float32, 3, 490, 199),
+])
+def test_k2_plan_shapes(cuda_device, dtype, batch, m, n):
+    args = _k2_problem(batch, m, n, 2, dtype, cuda_device)
+    with torch.no_grad():
+        mu, var = fused_svgp.fused_rbf_svgp_forward(*args)
+        mu_p, var_p = fused_svgp.fused_rbf_svgp_forward_plain(*args)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 1e-10
+    torch.testing.assert_close(mu, mu_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
+
+
+def test_k2_rejects_a_plan_that_cannot_launch(cuda_device):
+    args = _k2_problem(1, 64, 10, 2, torch.float32, cuda_device)
+    good = fused_svgp.plan(64, 10, 1, torch.float32)
+    short = good._replace(ls=good.ls._replace(smem_bytes=good.ls.smem_bytes - 4))
+    with torch.no_grad(), pytest.raises(RuntimeError, match="failed to launch"):
+        fused_svgp._launch(*args, sp=short)
+
+
 def test_k2_nan_on_a_failed_factor(cuda_device):
     args = _k2_problem(2, 64, 10, 2, torch.float32, cuda_device)
     args[6][1] = -10.0  # a negative jitter makes the second Gram indefinite
