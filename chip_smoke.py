@@ -78,20 +78,6 @@ def check(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def spd(batch: int, n: int, seed: int, dtype, device) -> torch.Tensor:
     g = torch.Generator(device=device).manual_seed(seed)
     a = torch.randn((batch, n, n), generator=g, dtype=torch.float64, device=device)
@@ -189,12 +175,12 @@ def time_k1(P, records: dict) -> None:
         tag = "f32" if dtype == torch.float32 else "f64"
         a, jit = k1_input(b, n, dtype, dev)
         reps = 5 if n >= 1536 else 20
-        records[(tag, b, n)]["call_ms"] = cuda_ms(lambda: chol.cholesky(a, jit, ladder=True), reps)
+        records[(tag, b, n)]["call_ms"] = P.loop_ms(lambda: chol.cholesky(a, jit, ladder=True), reps)
     for dtype, b, n in K1_SHAPES:
         tag = "f32" if dtype == torch.float32 else "f64"
         a, jit = k1_input(b, n, dtype, dev)
         reps = 5 if n >= 1536 else 20
-        ms = P.device_ms(lambda: chol.cholesky(a, jit, ladder=True), reps, "chol_kernel")
+        ms = P.device_ms(lambda: chol.cholesky(a, jit, ladder=True), reps, "chol_kernel", 1)
         plain_ms = P.device_ms(lambda: chol.cholesky_plain(a, jit, True), reps)
         library_ms = P.device_ms(lambda: torch.linalg.cholesky(a), reps)
         bound_ms, bound_by = chol_bound_ms(b, n, dtype)
@@ -256,9 +242,9 @@ def phase_k2(P) -> dict:
         for label, dtype, b, m, n, d in shapes:
             sp = K2.plan(m, n, b, dtype)
             print(f"[k2] plan {label} {'f32' if dtype == torch.float32 else 'f64'} B={b} M={m} "
-                  f"N={n}: [L_S | m] solve W={sp.ls.width}, {sp.ls.smem_bytes} B, grid "
-                  f"{sp.ls.grid}; predictive W={sp.predict.width}, {sp.predict.smem_bytes} B, "
-                  f"grid {sp.predict.grid}", flush=True)
+                  f"N={n}: stripe W={sp.width}, {sp.smem_bytes} B per solve block; grids "
+                  f"{(-(-(m + 1) // sp.width), b)} ([L_S | m] solve) and "
+                  f"{(-(-n // sp.width), b)} (predictive)", flush=True)
             args = P.k2_problem(b, m, n, d, m + n, dtype, dev)
             mu, var = K2.fused_rbf_svgp_forward(*args)
             mu_p, var_p = K2.fused_rbf_svgp_forward_plain(*args)
@@ -268,8 +254,8 @@ def phase_k2(P) -> dict:
             close = all(
                 bool(torch.allclose(a, w, rtol=tol, atol=tol)) for a, w in ((mu, mu_p), (var, var_p))
             )
-            ms = cuda_ms(lambda: K2.fused_rbf_svgp_forward(*args), 20)
-            plain_ms = cuda_ms(lambda: K2.fused_rbf_svgp_forward_plain(*args), 20)
+            ms = P.loop_ms(lambda: K2.fused_rbf_svgp_forward(*args), 20)
+            plain_ms = P.loop_ms(lambda: K2.fused_rbf_svgp_forward_plain(*args), 20)
             bound_ms, bound_by = k2_bound_ms(b, m, n, d, dtype)
             tag = "f32" if dtype == torch.float32 else "f64"
             print(
@@ -297,7 +283,7 @@ def k2_breakdown(P, label, args, calls: int = 10) -> None:
     predictive overlaps the [L_S | m] solve), and of the solves' yardstick,
     one torch.linalg.solve_triangular(L, [K_zx | L_S | m])."""
     K2 = P.fused_svgp
-    split = P.launch_split(P.per_kernel_us(lambda: K2.fused_rbf_svgp_forward(*args), calls))
+    split = P.k2_split(lambda: K2.fused_rbf_svgp_forward(*args), calls)
     trsm = P.yardstick_us(args, calls)
     print(f"[k2] breakdown {label} f32: Gram + factor {split['factor_us']:.1f} us, [L_S | m] "
           f"solve {split['ls_us']:.1f} us, predictive {split['predict_us']:.1f} us per call; "
@@ -604,9 +590,8 @@ def main() -> int:
         from mobocmf_tpu_torch.linalg import chol, fused_svgp, ops
         from mobocmf_tpu_torch.linalg.ops import ladder_jitter
         from mobocmf_tpu_torch.models import mfdgp as M
-        from mobocmf_tpu_torch.profile_chol import device_ms
-        from mobocmf_tpu_torch.profile_k2 import (k2_problem, launch_split, per_kernel_us,
-                                                  yardstick_us)
+        from mobocmf_tpu_torch.profile_k2 import k2_split, yardstick_us
+        from mobocmf_tpu_torch.profiling import device_ms, k2_problem, loop_ms
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
     except ImportError as exc:
@@ -628,12 +613,12 @@ def main() -> int:
 
         P = SimpleNamespace(BlackBoxMFDGPFitter=BlackBoxMFDGPFitter, trainer=trainer,
                             chol=chol, ops=ops, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
-                            tree_map=tree_map, device_ms=device_ms,
+                            tree_map=tree_map, device_ms=device_ms, loop_ms=loop_ms,
                             JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
                             optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
                             recommendation_model_pass=recommendation_model_pass,
-                            k2_problem=k2_problem, launch_split=launch_split,
-                            per_kernel_us=per_kernel_us, yardstick_us=yardstick_us)
+                            k2_problem=k2_problem, k2_split=k2_split,
+                            yardstick_us=yardstick_us)
         k1 = phase_k1(P)
         k2 = phase_k2(P)
         phase_reference(P)

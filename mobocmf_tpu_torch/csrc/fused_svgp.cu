@@ -52,19 +52,16 @@
 // update per panel, between two barriers. L's rows stream from L2 straight
 // into registers, the next row's loads in flight during this row's FMAs,
 // and the next diagonal block is copied (cp.async) into shared memory
-// during the update. The stripe width W (32, 16, 8 or 4), the shared
-// memory and the grids are the wrapper's plan (linalg/fused_svgp.py::plan),
-// checked here. FMA in the working type, no tensor cores (no TF32), no
-// library calls.
+// during the update. The stripe width W (32, 16, 8 or 4, one for both
+// solves) and its shared memory are the wrapper's plan
+// (linalg/fused_svgp.py::plan), checked here; each grid is (columns / W,
+// B). FMA in the working type, no tensor cores (no TF32), no library calls.
 //
-// Two builds time the design steps (mobocmf_tpu_torch/profile_k2.py):
-// -DMOBOCMF_K2_INVERSE multiplies by the inverse of each diagonal block,
-// formed once per state in launch 1, as the TPU kernel does
-// (_tri_lower_inverse_block); the default substitution is kept because the
-// inverse carries error in proportion to the block's condition (on the
-// card, an f64 state with jitter 2e-6 came out 2.0e-9 off the plain route
-// where the substitution stays within 1e-9). -DMOBOCMF_K2_FULL_LS makes
-// every stripe of launch 2 walk every panel.
+// The TPU kernel multiplies by the inverse of each diagonal block
+// (_tri_lower_inverse_block). That was measured here and not kept: the
+// inverse carries error in proportion to the block's condition, and on the
+// card an f64 state with jitter 2e-6 came out 2.0e-9 off the plain route,
+// where the substitution stays within 1e-9.
 
 #include <cuda_pipeline.h>
 
@@ -74,7 +71,7 @@ namespace {
 
 using namespace mobocmf;
 
-constexpr int PR = NB;        // rows per panel of the solve
+constexpr int PANEL = NB;  // rows per panel of the solve
 constexpr int WARPS = THREADS / 32;
 // shared memory a block may use on an H100 (opt-in limit)
 constexpr int SMEM_LIMIT = 232448;
@@ -89,8 +86,6 @@ struct Args {
   const T* os;       // (B,) outputscales
   const T* jitter;   // (B,)
   T* fac;            // (B, M, M) scratch: the factor L
-  T* dinv;           // (B, ceil(M/32), 32, 32) scratch: the diagonal blocks' inverses
-                     // (the inverse build only)
   T* wls;            // (B, M, M+1) scratch: L^{-1} [L_S | m]
   T* mu;             // (B, N)
   T* var;            // (B, N)
@@ -127,37 +122,6 @@ struct Gram {
   }
 };
 
-// The inverse of every 32x32 diagonal block of the finished factor
-// (identity past m) into dinv, row-major tiles. Each tile is inverted by
-// the block that holds it (so no remote read outlives the factor's last
-// cluster barrier), one warp per tile: lane i holds row i of L, lane j
-// computes column j of the inverse by forward substitution, the row of L
-// it needs broadcast by shuffles. A NaN pivot gives a NaN inverse.
-#ifdef MOBOCMF_K2_INVERSE
-template <typename T, bool RESIDENT>
-__device__ void invert_diagonal(const Store<T, RESIDENT>& S, T* dinv, int csize) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int mine = 0;
-  for (int k = 0; k < S.nt; ++k) {
-    if ((RESIDENT ? S.owner(k, k) : k % csize) != S.rank) continue;
-    if (mine++ % WARPS != warp) continue;
-    T l[NB], x[NB];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) l[j] = j <= lane ? S.get(k * NB + lane, k * NB + j) : T(0);
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      T acc = i == lane ? T(1) : T(0);
-#pragma unroll
-      for (int j = 0; j < i; ++j) acc = Num<T>::fma(-__shfl_sync(FULL, l[j], i), x[j], acc);
-      x[i] = acc / __shfl_sync(FULL, l[i], i);
-    }
-    T* out = dinv + (size_t)k * TILE_WORDS;
-#pragma unroll
-    for (int i = 0; i < NB; ++i) out[i * NB + lane] = x[i];
-  }
-}
-#endif
-
 template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(THREADS) gram_factor_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -171,9 +135,6 @@ __global__ void __launch_bounds__(THREADS) gram_factor_kernel(Args<T> a) {
   stage<T, RESIDENT>(S, csize, Gram<T>{a.z, a.ls + (size_t)s * a.d, a.os[s], a.jitter[s], a.d});
   factor<T, RESIDENT>(S, OUTER, true, cluster, w);
   write_out<T, RESIDENT>(S, L, csize);
-#ifdef MOBOCMF_K2_INVERSE
-  invert_diagonal<T, RESIDENT>(S, a.dinv + (size_t)s * S.nt * TILE_WORDS, csize);
-#endif
 }
 
 // K contiguous values of T from shared memory at p, in 16-byte loads; p is
@@ -195,27 +156,23 @@ __device__ __forceinline__ void load_row(const T* src, bool vec, T* l) {
   constexpr int P = 16 / sizeof(T);
   if (vec) {
 #pragma unroll
-    for (int i = 0; i < PR / P; ++i) unpack(__ldg(reinterpret_cast<const V*>(src) + i), l + i * P);
+    for (int i = 0; i < PANEL / P; ++i)
+      unpack(__ldg(reinterpret_cast<const V*>(src) + i), l + i * P);
   } else {
 #pragma unroll
-    for (int k = 0; k < PR; ++k) l[k] = __ldg(src + k);
+    for (int k = 0; k < PANEL; ++k) l[k] = __ldg(src + k);
   }
 }
 
-// Start the copies of panel p's diagonal block into D (stride LDS) and
-// commit them: L's lower triangle of the block, or in the inverse build
-// the block's inverse.
+// Start the copies of the lower triangle of panel p's diagonal block of L
+// into D (stride LDS) and commit them.
 template <typename T>
-__device__ __forceinline__ void fetch_diag(const T* L, const T* dinv, int m, int p, T* D) {
-  const int p0 = p * PR;
+__device__ __forceinline__ void fetch_diag(const T* L, int m, int p, T* D) {
+  const int p0 = p * PANEL;
   for (int e = threadIdx.x; e < TILE_WORDS; e += THREADS) {
     const int i = e / NB, k = e % NB;
-#ifdef MOBOCMF_K2_INVERSE
-    __pipeline_memcpy_async(D + i * LDS + k, dinv + (size_t)p * TILE_WORDS + e, sizeof(T));
-#else
     if (p0 + i < m && k <= i)
       __pipeline_memcpy_async(D + i * LDS + k, L + (size_t)(p0 + i) * m + p0 + k, sizeof(T));
-#endif
   }
   __pipeline_commit();
 }
@@ -238,8 +195,7 @@ __device__ __forceinline__ void subst_step(T* v, const T* D, T rl, int lane, int
 // in shared memory), D = L's diagonal block: forward substitution with
 // lanes as rows and each warp's columns (warp, warp + 8, ...) as
 // independent chains, each row scaled by its reciprocal pivot at the end.
-// A warp reads and writes only its own columns, so no block barrier. The
-// inverse build multiplies by D = the block's inverse instead.
+// A warp reads and writes only its own columns, so no block barrier.
 template <typename T, int W>
 __device__ __forceinline__ void triangle(T* X, const T* D, int p0, int pb) {
   constexpr int CPW = (W + WARPS - 1) / WARPS;
@@ -250,28 +206,15 @@ __device__ __forceinline__ void triangle(T* X, const T* D, int p0, int pb) {
     const int c = warp + WARPS * j;
     v[j] = c < W && lane < pb ? X[(p0 + lane) * W + c] : T(0);
   }
-#ifdef MOBOCMF_K2_INVERSE
-  T acc[CPW];
-#pragma unroll
-  for (int j = 0; j < CPW; ++j) acc[j] = T(0);
-  for (int k = 0; k < pb; ++k) {
-    const T dk = D[lane * LDS + k];
-#pragma unroll
-    for (int j = 0; j < CPW; ++j) acc[j] = Num<T>::fma(dk, __shfl_sync(FULL, v[j], k), acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < CPW; ++j) v[j] = acc[j];
-#else
   const T rl = lane < pb ? T(1) / D[lane * LDS + lane] : T(0);
-  if (pb == PR) {
+  if (pb == PANEL) {
 #pragma unroll
-    for (int k = 0; k < PR; ++k) subst_step<T, CPW>(v, D, rl, lane, k);
+    for (int k = 0; k < PANEL; ++k) subst_step<T, CPW>(v, D, rl, lane, k);
   } else {
     for (int k = 0; k < pb; ++k) subst_step<T, CPW>(v, D, rl, lane, k);
   }
 #pragma unroll
   for (int j = 0; j < CPW; ++j) v[j] *= rl;
-#endif
 #pragma unroll
   for (int j = 0; j < CPW; ++j) {
     const int c = warp + WARPS * j;
@@ -288,42 +231,42 @@ __device__ __forceinline__ void triangle(T* X, const T* D, int p0, int pb) {
 // boundary too), and the next diagonal block's copies run during the
 // update. Two barriers a panel. D: a 32 x LDS block of shared memory.
 template <typename T, int W>
-__device__ void solve_stripe(T* X, T* D, const T* L, const T* dinv, int m, int p_first) {
+__device__ void solve_stripe(T* X, T* D, const T* L, int m, int p_first) {
   constexpr int TC = W < 8 ? W : 8;
   constexpr int CT = W / TC;
   constexpr int RT = THREADS / CT;
-  const int nt = (m + PR - 1) / PR;
+  const int nt = (m + PANEL - 1) / PANEL;
   const int tc = threadIdx.x % CT, tr = threadIdx.x / CT;
   const bool vec = m % (16 / sizeof(T)) == 0;
   // this thread's next update row nr, below panel np (np = nt: none left)
-  int np = p_first, nr = (p_first + 1) * PR + tr;
+  int np = p_first, nr = (p_first + 1) * PANEL + tr;
   if (nr >= m) np = nt;
-  T nxt[PR];
-  if (np < nt) load_row<T>(L + (size_t)nr * m + np * PR, vec, nxt);
-  fetch_diag<T>(L, dinv, m, p_first, D);
+  T nxt[PANEL];
+  if (np < nt) load_row<T>(L + (size_t)nr * m + np * PANEL, vec, nxt);
+  fetch_diag<T>(L, m, p_first, D);
   for (int p = p_first; p < nt; ++p) {
-    const int p0 = p * PR;
+    const int p0 = p * PANEL;
     __pipeline_wait_prior(0);
     __syncthreads();  // the block and the panel's rows are up to date
-    triangle<T, W>(X, D, p0, min(PR, m - p0));
+    triangle<T, W>(X, D, p0, min(PANEL, m - p0));
     __syncthreads();  // X[p] is final and D is free
-    if (p + 1 < nt) fetch_diag<T>(L, dinv, m, p + 1, D);
+    if (p + 1 < nt) fetch_diag<T>(L, m, p + 1, D);
     while (np == p) {
-      T cur[PR];
+      T cur[PANEL];
 #pragma unroll
-      for (int k = 0; k < PR; ++k) cur[k] = nxt[k];
+      for (int k = 0; k < PANEL; ++k) cur[k] = nxt[k];
       const int r = nr;
       nr += RT;
       if (nr >= m) {
         ++np;
-        nr = (np + 1) * PR + tr;
+        nr = (np + 1) * PANEL + tr;
         if (nr >= m) np = nt;
       }
-      if (np < nt) load_row<T>(L + (size_t)nr * m + np * PR, vec, nxt);
+      if (np < nt) load_row<T>(L + (size_t)nr * m + np * PANEL, vec, nxt);
       T acc[TC];
       ld_vec<T, TC>(X + r * W + tc * TC, acc);
 #pragma unroll
-      for (int k = 0; k < PR; ++k) {
+      for (int k = 0; k < PANEL; ++k) {
         T xv[TC];
         ld_vec<T, TC>(X + (p0 + k) * W + tc * TC, xv);
 #pragma unroll
@@ -356,21 +299,16 @@ __global__ void __launch_bounds__(THREADS) solve_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (!PREDICT) asm volatile("griddepcontrol.launch_dependents;");
   const int s = blockIdx.y, m = a.m, tid = threadIdx.x;
-  const int nt = (m + PR - 1) / PR;
+  const int nt = (m + PANEL - 1) / PANEL;
   const int ncols = PREDICT ? a.n : m + 1;
   // launch 2 runs its last stripe (the m column, every panel) first
   int stripe = blockIdx.x;
   if (!PREDICT) stripe = blockIdx.x == 0 ? gridDim.x - 1 : blockIdx.x - 1;
   const int c0 = stripe * W;
-#ifdef MOBOCMF_K2_FULL_LS
-  const int p_first = 0;
-#else
-  const int p_first = PREDICT || c0 + W > m ? 0 : c0 / PR;
-#endif
+  const int p_first = PREDICT || c0 + W > m ? 0 : c0 / PANEL;
   T* X = reinterpret_cast<T*>(smem);
   T* D = X + (size_t)m * W;
   const T* L = a.fac + (size_t)s * m * m;
-  const T* dinv = a.dinv + (size_t)s * nt * TILE_WORDS;
 
   if (PREDICT) {
     const T* ls = a.ls + (size_t)s * a.d;
@@ -382,17 +320,17 @@ __global__ void __launch_bounds__(THREADS) solve_kernel(Args<T> a) {
     }
   } else {
     const T* lsc = a.ls_chol + (size_t)s * m * m;
-    for (int e = p_first * PR * W + tid; e < m * W; e += THREADS) {
+    for (int e = p_first * PANEL * W + tid; e < m * W; e += THREADS) {
       const int r = e / W, col = c0 + e % W;
       X[e] = col < m ? (col <= r ? lsc[(size_t)r * m + col] : T(0))
                      : (col == m ? a.mean[(size_t)s * m + r] : T(0));
     }
   }
-  solve_stripe<T, W>(X, D, L, dinv, m, p_first);
+  solve_stripe<T, W>(X, D, L, m, p_first);
 
   T* wls = a.wls + (size_t)s * m * (m + 1);
   if (!PREDICT) {
-    for (int e = p_first * PR * W + tid; e < m * W; e += THREADS) {
+    for (int e = p_first * PANEL * W + tid; e < m * W; e += THREADS) {
       const int r = e / W, col = c0 + e % W;
       if (col <= m) wls[(size_t)r * (m + 1) + col] = X[e];
     }
@@ -422,12 +360,12 @@ __global__ void __launch_bounds__(THREADS) solve_kernel(Args<T> a) {
     for (int h = 0; h < 2; ++h) {
       const int i0 = h == 0 ? pair : nt - 1 - pair;
       if (h == 1 && i0 == pair) break;
-      const int col = i0 * PR + lane;
+      const int col = i0 * PANEL + lane;
       T acc[W], av[U];
 #pragma unroll
       for (int j = 0; j < W; ++j) acc[j] = T(0);
-      load_wls<T, U>(wls, m, i0 * PR, col, av);
-      for (int r = i0 * PR; r < m; r += U) {
+      load_wls<T, U>(wls, m, i0 * PANEL, col, av);
+      for (int r = i0 * PANEL; r < m; r += U) {
         T an[U];
         load_wls<T, U>(wls, m, r + U, col, an);
 #pragma unroll
@@ -511,29 +449,27 @@ bool solve_plan_ok(int m, int width, int smem) {
 }
 
 template <typename T>
-int launch(const Args<T>& a, int csize, int resident, int smem, int w_ls, int smem_ls,
-           int w_pred, int smem_pred, void* stream) {
+int launch(const Args<T>& a, int csize, int resident, int smem, int width, int smem_solve,
+           void* stream) {
   if (a.batch <= 0 || a.m <= 0 || a.n <= 0 || a.d <= 0 || a.batch > 65535 ||
-      smem < smem_bytes<T>(a.m, csize, resident) || !solve_plan_ok<T>(a.m, w_ls, smem_ls) ||
-      !solve_plan_ok<T>(a.m, w_pred, smem_pred))
+      smem < smem_bytes<T>(a.m, csize, resident) || !solve_plan_ok<T>(a.m, width, smem_solve))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int ret =
       resident ? launch_cluster(gram_factor_kernel<T, true>, a.batch * csize, csize, smem, st, a)
                : launch_cluster(gram_factor_kernel<T, false>, a.batch * csize, csize, smem, st, a);
   if (ret != 0) return ret;
-  ret = launch_width<T, false>(a, w_ls, smem_ls, st);
+  ret = launch_width<T, false>(a, width, smem_solve, st);
   if (ret != 0) return ret;
-  return launch_width<T, true>(a, w_pred, smem_pred, st);
+  return launch_width<T, true>(a, width, smem_solve, st);
 }
 
 template <typename T>
 int entry(const T* z, const T* x, const T* mean, const T* ls_chol, const T* ls, const T* os,
-          const T* jitter, T* fac, T* dinv, T* wls, T* mu, T* var, int batch, int m, int n,
-          int d, int csize, int resident, int smem, int w_ls, int smem_ls, int w_pred,
-          int smem_pred, void* stream) {
-  Args<T> a{z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m, n, d};
-  return launch<T>(a, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
+          const T* jitter, T* fac, T* wls, T* mu, T* var, int batch, int m, int n, int d,
+          int csize, int resident, int smem, int width, int smem_solve, void* stream) {
+  Args<T> a{z, x, mean, ls_chol, ls, os, jitter, fac, wls, mu, var, batch, m, n, d};
+  return launch<T>(a, csize, resident, smem, width, smem_solve, stream);
 }
 
 }  // namespace
@@ -542,32 +478,29 @@ extern "C" {
 
 // z (m, d), x (n, d), mean (batch, m), ls_chol (batch, m, m), ls (batch, d),
 // os (batch,), jitter (batch,): inputs, row-major and contiguous.
-// fac (batch, m, m), dinv (batch, ceil(m/32), 32, 32), wls (batch, m, m+1):
-// scratch. mu, var (batch, n): outputs. csize, resident, smem: K1's plan
-// for m (linalg/chol.py::plan), used by the Gram + factor launch. w_ls,
-// smem_ls and w_pred, smem_pred: the stripe width and dynamic shared memory
-// of the [L_S | m] solve and of the predictive (linalg/fused_svgp.py::plan).
+// fac (batch, m, m), wls (batch, m, m+1): scratch. mu, var (batch, n):
+// outputs. csize, resident, smem: K1's plan for m (linalg/chol.py::plan),
+// used by the Gram + factor launch. width, smem_solve: the stripe width and
+// dynamic shared memory of both solves (linalg/fused_svgp.py::plan).
 // Launches the three kernels on `stream` and returns the first CUDA launch
 // error (0 = ok), cudaErrorInvalidValue for a plan that cannot launch, or
 // -2 when the card cannot hold one cluster of the factor's plan.
 int mobocmf_fused_svgp_f32(const float* z, const float* x, const float* mean,
                            const float* ls_chol, const float* ls, const float* os,
-                           const float* jitter, float* fac, float* dinv, float* wls, float* mu,
-                           float* var, int batch, int m, int n, int d, int csize, int resident,
-                           int smem, int w_ls, int smem_ls, int w_pred, int smem_pred,
-                           void* stream) {
-  return entry<float>(z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m, n,
-                      d, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
+                           const float* jitter, float* fac, float* wls, float* mu, float* var,
+                           int batch, int m, int n, int d, int csize, int resident, int smem,
+                           int width, int smem_solve, void* stream) {
+  return entry<float>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, mu, var, batch, m, n, d,
+                      csize, resident, smem, width, smem_solve, stream);
 }
 
 int mobocmf_fused_svgp_f64(const double* z, const double* x, const double* mean,
                            const double* ls_chol, const double* ls, const double* os,
-                           const double* jitter, double* fac, double* dinv, double* wls,
-                           double* mu, double* var, int batch, int m, int n, int d, int csize,
-                           int resident, int smem, int w_ls, int smem_ls, int w_pred,
-                           int smem_pred, void* stream) {
-  return entry<double>(z, x, mean, ls_chol, ls, os, jitter, fac, dinv, wls, mu, var, batch, m,
-                       n, d, csize, resident, smem, w_ls, smem_ls, w_pred, smem_pred, stream);
+                           const double* jitter, double* fac, double* wls, double* mu,
+                           double* var, int batch, int m, int n, int d, int csize, int resident,
+                           int smem, int width, int smem_solve, void* stream) {
+  return entry<double>(z, x, mean, ls_chol, ls, os, jitter, fac, wls, mu, var, batch, m, n, d,
+                       csize, resident, smem, width, smem_solve, stream);
 }
 
 }  // extern "C"

@@ -21,8 +21,9 @@ one to the other. A state whose Gram does not factorize gives NaN.
 (the [L_S | m] solve and the predictive): each block keeps a stripe of W
 columns, all M rows, in shared memory, so W is the widest of 32, 16, 8, 4
 whose stripe and one diagonal block of L fit a block, narrowed while a
-wider one leaves SMs without a predictive block. It mirrors
-csrc/fused_svgp.cu::solve_smem_bytes, which the launch checks.
+wider one leaves SMs without a predictive block. Both solves take that
+width. It mirrors csrc/fused_svgp.cu::solve_smem_bytes, which the launch
+checks.
 
 Counters: `launches` counts wrapper calls that launched the kernels (each
 call is KERNELS_PER_CALL device kernels).
@@ -45,25 +46,20 @@ launches = 0
 # device kernels per call: Gram + factor, the [L_S | m] solve, the predictive
 KERNELS_PER_CALL = 3
 
-_C_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_C_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 # csrc/fused_svgp.cu: stripe widths; the H100's SM count
 WIDTHS = (32, 16, 8, 4)
 SMS = 132
 
 
-class Solve(NamedTuple):
-    """Launch plan of one solve: stripe width, dynamic shared memory per
-    block, grid (stripes, states)."""
+class Plan(NamedTuple):
+    """Launch plan of both solves: the stripe width and the dynamic shared
+    memory per block. The grids are (ceil((M + 1) / width), B) for the
+    [L_S | m] solve and (ceil(N / width), B) for the predictive."""
 
     width: int
     smem_bytes: int
-    grid: Tuple[int, int]
-
-
-class Plan(NamedTuple):
-    ls: Solve  # W_ls | w_m = L^{-1} [L_S | m]: M + 1 columns
-    predict: Solve  # L^{-1} K_zx and the reductions: N columns
 
 
 def solve_smem_bytes(m: int, width: int, itemsize: int) -> int:
@@ -86,8 +82,7 @@ def plan(m: int, n: int, batch: int, dtype: torch.dtype) -> Plan:
     if not fits:
         raise ValueError(f"fused_rbf_svgp_forward: no stripe of M = {m} rows fits a block")
     w = next((w for w in fits if -(-n // w) * batch >= SMS), fits[-1])
-    smem = solve_smem_bytes(m, w, itemsize)
-    return Plan(Solve(w, smem, (-(-(m + 1) // w), batch)), Solve(w, smem, (-(-n // w), batch)))
+    return Plan(w, solve_smem_bytes(m, w, itemsize))
 
 
 def reset_counts() -> None:
@@ -132,27 +127,25 @@ def fused_rbf_svgp_forward_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype, defines: Tuple[str, ...] = ()):
+def _entry(dtype: torch.dtype):
     """The C launch function of the kernels for `dtype`, typed."""
     from mobocmf_tpu_torch import _build
 
-    lib = _build.load("fused_svgp", defines)
+    lib = _build.load("fused_svgp")
     fn = lib.mobocmf_fused_svgp_f32 if dtype == torch.float32 else lib.mobocmf_fused_svgp_f64
     fn.argtypes = _C_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = None,
-            defines: Tuple[str, ...] = ()):
+def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = None):
     global launches
     batch, m = mean.shape
     n, d = x.shape
     sp = plan(m, n, batch, z.dtype) if sp is None else sp
-    fn = _entry(z.dtype, defines)
+    fn = _entry(z.dtype)
     new = functools.partial(torch.empty, dtype=z.dtype, device=z.device)
     fac, wls = new((batch, m, m)), new((batch, m, m + 1))
-    dinv = new((batch, -(-m // chol.NB), chol.NB, chol.NB))  # read by the inverse build only
     mu, var = new((batch, n)), new((batch, n))
     pl = chol.plan(m, z.dtype)  # the Gram's factor runs under K1's plan
     with torch.cuda.device(z.device):
@@ -160,9 +153,9 @@ def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = No
         err = fn(
             z.data_ptr(), x.data_ptr(), mean.data_ptr(), ls_chol.data_ptr(),
             lengthscale.data_ptr(), outputscale.data_ptr(), jitter.data_ptr(),
-            fac.data_ptr(), dinv.data_ptr(), wls.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            fac.data_ptr(), wls.data_ptr(), mu.data_ptr(), var.data_ptr(),
             batch, m, n, d, pl.cluster, int(pl.resident), pl.smem_bytes,
-            sp.ls.width, sp.ls.smem_bytes, sp.predict.width, sp.predict.smem_bytes, stream,
+            sp.width, sp.smem_bytes, stream,
         )
     if err != 0:
         raise launch_error("fused_rbf_svgp_forward", err)

@@ -32,18 +32,10 @@ from pathlib import Path
 
 import torch
 
-from mobocmf_tpu_torch.profile_k2 import per_kernel_us
+from mobocmf_tpu_torch.profiling import device_ms
 
 SHAPES = [(4, 128), (1, 512), (3, 512), (3, 1024), (3, 1536), (3, 2048)]
 SWEEP_N = (128, 200, 256, 384, 512, 768, 1024)
-
-
-def device_ms(fn, reps: int, name: str = "") -> float:
-    """Device time per call of `fn` in ms: the time of the card's kernels
-    and copies whose name contains `name` (all of them by default), under
-    torch.profiler (per_kernel_us). Unlike a CUDA-event time over a loop of
-    calls, it does not count the host's time between launches."""
-    return sum(t for k, t in per_kernel_us(fn, reps).items() if k != "span" and name in k) / 1e3
 
 
 PHASES = ("sync_top", "diag", "panel", "sync_mid", "inner", "sync_outer", "outer")
@@ -135,7 +127,8 @@ def main() -> None:
             rel = ((got - want).abs().max() / want.abs().max()).item()
             if not rel < 1e-4:
                 raise SystemExit(f"profile_chol: {name} at B={batch} n={n} is off by {rel:.3e}")
-            row[name] = device_ms(lambda: chol._launch(a, jit, True, pl), args.reps, "chol_kernel")
+            row[name] = device_ms(lambda: chol._launch(a, jit, True, pl), args.reps,
+                                 "chol_kernel", 1)
             row[name + "_storage"] = "resident" if pl.resident else "L2"
         row["library"] = device_ms(lambda: torch.linalg.cholesky(a), args.reps)
         rows.append(row)
@@ -156,7 +149,7 @@ def main() -> None:
                         continue
                     pl = forced(n, cluster, resident, chol.OUTER)
                     row[f"{cluster}-{'resident' if resident else 'L2'}"] = device_ms(
-                        lambda: chol._launch(a, jit, True, pl), args.reps, "chol_kernel")
+                        lambda: chol._launch(a, jit, True, pl), args.reps, "chol_kernel", 1)
             sweep.append(row)
             print(f"[profile_chol] sweep f32 B=3 n={n} (plan {row['plan']}): " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in row.items() if k[0].isdigit() and "-" in k),

@@ -4,23 +4,15 @@
 
 At the main path's three K2 shapes (bc512 screening: B=6 M=512 N=200;
 bc512 recommendation: B=3 M=512 N=1000; b128 screening: B=8 M=128 N=200;
-f32, d=2, the JAX kernel test's problem, `k2_problem`) it checks the kernel
-against its plain version and prints a loop of wrapper calls (CUDA events)
-and the device time of each launch (torch.profiler).
+f32, d=2, the JAX kernel test's problem, `profiling.k2_problem`) it checks
+the kernel against its plain version and prints a loop of wrapper calls
+(CUDA events) and the device time of each launch (torch.profiler).
 
-With --steps it also times the design steps, each against the one before,
-on the same inputs (device time of the two solve launches and of the whole
-call):
-  1. stripes: the stripe held in shared memory and solved right-looking,
-     the triangle by substitution, every stripe of the [L_S | m] solve
-     walking every panel (-DMOBOCMF_K2_FULL_LS), W = 32;
-  2. +inverse: the triangle as a product with the diagonal block's inverse
-     formed in launch 1 (-DMOBOCMF_K2_INVERSE), the TPU kernel's way;
-  3. +cut: substitution again, the [L_S | m] stripes from their own panel;
-  4. +plan: the stripe widths of linalg/fused_svgp.py::plan;
-then both solves at each narrower width (W=16, 8, 4), and, as the
-solves' yardstick, one torch.linalg.solve_triangular(L,
-[K_zx | L_S | m]) on the same factor and right-hand side.
+With --steps it also times the stripe width of linalg/fused_svgp.py::plan
+against every width forced (W = 32, 16, 8, 4) on the same inputs (device
+time of the two solve launches and of the whole call), and, as the solves'
+yardstick, one torch.linalg.solve_triangular(L, [K_zx | L_S | m]) on the
+same factor and right-hand side.
 
 With --tree PATH it times the K2 of the checkout at PATH instead (the
 per-shape timing only), so that two commits compare in one call: run this
@@ -38,85 +30,38 @@ if sys.path and Path(sys.path[0]).resolve() == Path(__file__).resolve().parent:
     sys.path.pop(0)  # run by its path: the package's own directory is no top level
 
 import argparse
+import importlib.util
 import json
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import torch
+
+
+def _own_profiling():
+    """profiling.py of this file's checkout, loaded by its path: with --tree
+    the package is imported from the other checkout, which may lack it."""
+    spec = importlib.util.spec_from_file_location(
+        "_k2_profiling", Path(__file__).resolve().with_name("profiling.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_profiling = _own_profiling()
+k2_problem, loop_ms, per_kernel_us = (_profiling.k2_problem, _profiling.loop_ms,
+                                      _profiling.per_kernel_us)
 
 SHAPES = [("bc512-screen", 6, 512, 200), ("bc512-recommend", 3, 512, 1000),
           ("b128-screen", 8, 128, 200)]
-STEPS = [
-    ("stripes", ("MOBOCMF_K2_FULL_LS",), 32),
-    ("+inverse", ("MOBOCMF_K2_FULL_LS", "MOBOCMF_K2_INVERSE"), 32),
-    ("+cut", (), 32),
-    ("+plan", (), None),
-    ("W=16", (), 16),
-    ("W=8", (), 8),
-    ("W=4", (), 4),
-]
-
-
-def k2_problem(batch, m, n, d, seed, dtype, dev):
-    """The JAX kernel test's well-posed problem (tests/test_fused_svgp_kernel.py:
-    19-35: lengthscale 0.15, outputscale 1.3, jitter 1e-2), batched."""
-    rng = np.random.default_rng(seed)
-    vals = (
-        rng.uniform(size=(m, d)), rng.uniform(size=(n, d)), rng.normal(size=(batch, m)),
-        np.tril(rng.normal(size=(batch, m, m)) * 0.05) + 0.3 * np.eye(m),
-        np.full((batch, d), 0.15), np.full((batch,), 1.3), np.full((batch,), 1e-2),
-    )
-    return [torch.as_tensor(v, dtype=dtype, device=dev) for v in vals]
-
-
-def per_kernel_us(fn, calls: int) -> dict:
-    """Device time per call, in us, of each kernel or copy `fn` launches,
-    summed over `calls` calls under torch.profiler; under "span" the time
-    from a call's first kernel to the end of its last (K2's launches
-    overlap), averaged over the calls. A first round of `calls` calls runs
-    traced and is thrown away (the profiler's warm-up): the first kernels
-    of a session can go unrecorded."""
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                schedule=schedule) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    out, kernels = {}, []
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            out[evt.name] = out.get(evt.name, 0.0) + evt.time_range.elapsed_us() / calls
-            kernels.append((evt.time_range.start, evt.time_range.end))
-    per_call = len(kernels) // calls
-    if per_call * calls == len(kernels):
-        kernels.sort()
-        out["span"] = sum(max(e for _, e in kernels[i:i + per_call]) - kernels[i][0]
-                          for i in range(0, len(kernels), per_call)) / calls
-    else:
-        out["span"] = float("nan")  # events lost: no span
-    return out
-
-
-def loop_ms(fn, reps: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+WIDTHS = [("plan", None), ("W=32", 32), ("W=16", 16), ("W=8", 8), ("W=4", 4)]
+# kernels of one call of fused_rbf_svgp_forward, by a part of their names
+K2_LAUNCHES = {"gram_factor_kernel": 1, "solve_kernel": 2}
 
 
 def launch_split(us: dict) -> dict:
     """The device time of one call by launch: factor (Gram + factor),
     ls (the [L_S | m] solve), predict, and total."""
-    row = {"factor_us": 0.0, "ls_us": 0.0, "predict_us": 0.0, "span_us": us.get("span")}
+    row = {"factor_us": 0.0, "ls_us": 0.0, "predict_us": 0.0, "span_us": us["span"]}
     for name, t in us.items():
         if name == "span":
             continue
@@ -126,6 +71,11 @@ def launch_split(us: dict) -> dict:
             row["predict_us" if "Lb1E" in name or ", true>" in name else "ls_us"] += t
     row["total_us"] = row["factor_us"] + row["ls_us"] + row["predict_us"]
     return row
+
+
+def k2_split(fn, calls: int) -> dict:
+    """launch_split of `calls` calls of fn, a call of K2's kernels."""
+    return launch_split(per_kernel_us(fn, calls, K2_LAUNCHES))
 
 
 def describe(split: dict) -> str:
@@ -172,10 +122,6 @@ def main() -> None:
     ).stdout.strip()
     print(f"[card] {card}; K2 of {Path(K2.__file__).resolve()}", flush=True)
     _build.build()
-    if args.steps:
-        with ThreadPoolExecutor(len(STEPS)) as pool:
-            list(pool.map(lambda d: _build.build(["fused_svgp"], d),
-                          {defines for _, defines, _ in STEPS if defines}))
     dev = torch.device("cuda")
     rows = []
     with torch.no_grad():
@@ -193,26 +139,21 @@ def main() -> None:
 
             row["max_abs_err"] = check(*K2.fused_rbf_svgp_forward(*p), "the kernel")
             row["loop_ms"] = loop_ms(lambda: K2.fused_rbf_svgp_forward(*p), args.reps)
-            row.update(launch_split(per_kernel_us(lambda: K2.fused_rbf_svgp_forward(*p),
-                                                  args.reps)))
+            row.update(k2_split(lambda: K2.fused_rbf_svgp_forward(*p), args.reps))
             print(f"[profile_k2] {label} f32 B={b} M={m} N={n} ({tree.name}): loop "
                   f"{row['loop_ms']:.4f} ms; device {describe(row)}; "
                   f"max_abs_err {row['max_abs_err']:.3e}",
                   flush=True)
             if args.steps:
-                size = 4
-                for name, defines, width in STEPS:
+                for name, width in WIDTHS:
                     sp = K2.plan(m, n, b, torch.float32)
                     if width is not None:
-                        sp = K2.Plan(*(K2.Solve(width, K2.solve_smem_bytes(m, width, size),
-                                                (-(-cols // width), b))
-                                       for cols in (m + 1, n)))
-                    check(*K2._launch(*p, sp=sp, defines=defines), name)
-                    split = launch_split(per_kernel_us(
-                        lambda: K2._launch(*p, sp=sp, defines=defines), args.reps))
-                    row[name] = dict(split, widths=[sp.ls.width, sp.predict.width])
-                    print(f"[profile_k2] step {name} {label} (W {sp.ls.width} / "
-                          f"{sp.predict.width}): {describe(split)}", flush=True)
+                        sp = K2.Plan(width, K2.solve_smem_bytes(m, width, 4))
+                    check(*K2._launch(*p, sp=sp), name)
+                    split = k2_split(lambda: K2._launch(*p, sp=sp), args.reps)
+                    row[name] = dict(split, width=sp.width)
+                    print(f"[profile_k2] width {name} {label} (W {sp.width}): {describe(split)}",
+                          flush=True)
                 row["trsm_us"] = yardstick_us(p, args.reps)
                 print(f"[profile_k2] yardstick {label}: solve_triangular(L, [K_zx | L_S | m]) "
                       f"{row['trsm_us']:.1f} us", flush=True)

@@ -180,7 +180,7 @@ def test_k2_matches_plain(cuda_device, dtype, batch, m, n, d):
     torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
 
 
-# every stripe width of each solve, forced, with ragged M and N (the last
+# every stripe width, forced, with ragged M and N (the last
 # panel shorter than 32 rows, the last stripe narrower than W)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("width", [32, 16, 8, 4])
@@ -188,12 +188,7 @@ def test_k2_matches_plain(cuda_device, dtype, batch, m, n, d):
 def test_k2_every_stripe_width(cuda_device, dtype, width, batch, m, n):
     args = _k2_problem(batch, m, n, 2, dtype, cuda_device)
     size = torch.finfo(dtype).bits // 8
-
-    def solve(cols):
-        return fused_svgp.Solve(width, fused_svgp.solve_smem_bytes(m, width, size),
-                                (-(-cols // width), batch))
-
-    sp = fused_svgp.Plan(solve(m + 1), solve(n))
+    sp = fused_svgp.Plan(width, fused_svgp.solve_smem_bytes(m, width, size))
     with torch.no_grad():
         mu, var = fused_svgp._launch(*args, sp=sp)
         mu_p, var_p = fused_svgp.fused_rbf_svgp_forward_plain(*args)
@@ -223,7 +218,7 @@ def test_k2_plan_shapes(cuda_device, dtype, batch, m, n):
 def test_k2_rejects_a_plan_that_cannot_launch(cuda_device):
     args = _k2_problem(1, 64, 10, 2, torch.float32, cuda_device)
     good = fused_svgp.plan(64, 10, 1, torch.float32)
-    short = good._replace(ls=good.ls._replace(smem_bytes=good.ls.smem_bytes - 4))
+    short = good._replace(smem_bytes=good.smem_bytes - 4)
     with torch.no_grad(), pytest.raises(RuntimeError, match="failed to launch"):
         fused_svgp._launch(*args, sp=short)
 

@@ -8,14 +8,12 @@ csrc/fused_svgp.cu.
 `_schedule` is a plain PyTorch mirror of the kernels' schedule: stripes of
 W columns solved right-looking by 32-row panels (the panel's triangle by
 forward substitution, column k scaled by the reciprocal pivot, then the
-rank-32 update of every row below it), the stripes of L_S starting at their own panel and
-the m column in the last stripe, walking every panel, and
-colsum((W_ls^T W)^2) by 32-row blocks in the warps' order (i0 paired with
-J - 1 - i0). The rows of W_ls above a stripe's first panel are NaN here:
-the kernel never writes them, so the mirror shows they are never read.
-With `inverse=True` the triangle is a product with the inverse of the
-diagonal block (identity past M, one column per lane), the kernel's
--DMOBOCMF_K2_INVERSE build. It is held against
+rank-32 update of every row below it), the stripes of L_S starting at
+their own panel and the m column in the last stripe, walking every panel,
+and colsum((W_ls^T W)^2) by 32-row blocks in the warps' order (i0 paired
+with J - 1 - i0). The rows of W_ls above a stripe's first panel are NaN
+here: the kernel never writes them, so the mirror shows they are never
+read. It is held against
 fused_rbf_svgp_forward_plain and the JAX package's reference_forward at
 f64, and against the Pallas kernel in interpret mode at f32, so that a
 fault of the schedule shows here before the card runs the kernel.
@@ -67,50 +65,26 @@ def test_plan_every_bucket(m, dtype):
     for n in (1, 150, 200, 1000):
         for batch in (1, 3, 6, 8):
             pl = K2.plan(m, n, batch, dtype)
-            assert pl.ls.width == pl.predict.width
-            for sv, cols in ((pl.ls, m + 1), (pl.predict, n)):
-                assert sv.width in (32, 16, 8, 4)
-                assert sv.smem_bytes == size * (m * sv.width + 32 * 33)
-                assert sv.smem_bytes + chol.STATIC_SMEM_BYTES <= 232_448
-                assert sv.grid == (-(-cols // sv.width), batch)
+            assert pl.width in (32, 16, 8, 4)
+            assert pl.smem_bytes == size * (m * pl.width + 32 * 33)
+            assert pl.smem_bytes + chol.STATIC_SMEM_BYTES <= 232_448
             # the widest stripe that fits and still gives every SM a block
             # of the predictive; the narrowest that fits when none does
             fits = [w for w in (32, 16, 8, 4)
                     if size * (m * w + 32 * 33) + chol.STATIC_SMEM_BYTES <= 232_448]
             full = [w for w in fits if -(-n // w) * batch >= 132]
-            assert pl.predict.width == (full[0] if full else fits[-1])
+            assert pl.width == (full[0] if full else fits[-1])
 
 
 def test_plan_at_the_path_shapes():
     f32, f64 = torch.float32, torch.float64
-    assert K2.plan(512, 200, 6, f32) == K2.Plan(K2.Solve(8, 20608, (65, 6)),
-                                                K2.Solve(8, 20608, (25, 6)))
-    assert K2.plan(512, 1000, 3, f32) == K2.Plan(K2.Solve(16, 36992, (33, 3)),
-                                                 K2.Solve(16, 36992, (63, 3)))
-    assert K2.plan(128, 200, 8, f32) == K2.Plan(K2.Solve(8, 8320, (17, 8)),
-                                                K2.Solve(8, 8320, (25, 8)))
-    assert K2.plan(512, 1000, 6, f32).predict.width == 32
-    assert K2.plan(2048, 1000, 6, f32).predict.width == 16  # W = 32 would need 266 KB
-    assert K2.plan(1024, 200, 3, f64).ls.width == 4
-    assert K2.plan(4096, 200, 3, f64).ls.width == 4
-
-
-def _inverse_blocks(l: torch.Tensor) -> torch.Tensor:
-    """Inverses of the 32x32 diagonal blocks of l (identity past M), as one
-    warp forms each: column j on lane j, rows in order,
-    x_i = (e_i - L[i, :i] x[:i]) / L[i, i]."""
-    m = l.shape[0]
-    nt = -(-m // NB)
-    pad = torch.eye(nt * NB, dtype=l.dtype)
-    pad[:m, :m] = l
-    out = torch.zeros((nt, NB, NB), dtype=l.dtype)
-    for k in range(nt):
-        t = pad[k * NB:(k + 1) * NB, k * NB:(k + 1) * NB]
-        x = torch.zeros((NB, NB), dtype=l.dtype)
-        for i in range(NB):
-            x[i] = (torch.eye(NB, dtype=l.dtype)[i] - t[i, :i] @ x[:i]) / t[i, i]
-        out[k] = x
-    return out
+    assert K2.plan(512, 200, 6, f32) == K2.Plan(8, 20608)
+    assert K2.plan(512, 1000, 3, f32) == K2.Plan(16, 36992)
+    assert K2.plan(128, 200, 8, f32) == K2.Plan(8, 8320)
+    assert K2.plan(512, 1000, 6, f32).width == 32
+    assert K2.plan(2048, 1000, 6, f32).width == 16  # W = 32 would need 266 KB
+    assert K2.plan(1024, 200, 3, f64).width == 4
+    assert K2.plan(4096, 200, 3, f64).width == 4
 
 
 def _substitute(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -124,24 +98,20 @@ def _substitute(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x * r[:, None]
 
 
-def _solve_stripe(l, x, p_first, inverse=False):
+def _solve_stripe(l, x, p_first):
     """x (M x W) <- L^{-1} x from panel p_first on, right-looking."""
     m = l.shape[0]
-    dinv = _inverse_blocks(l) if inverse else None
     for p in range(p_first, -(-m // NB)):
         p0 = p * NB
         pb = min(NB, m - p0)
-        if inverse:
-            x[p0:p0 + pb] = dinv[p, :pb, :pb] @ x[p0:p0 + pb]
-        else:
-            x[p0:p0 + pb] = _substitute(l[p0:p0 + pb, p0:p0 + pb], x[p0:p0 + pb])
+        x[p0:p0 + pb] = _substitute(l[p0:p0 + pb, p0:p0 + pb], x[p0:p0 + pb])
         x[p0 + NB:] -= l[p0 + NB:, p0:p0 + NB] @ x[p0:p0 + NB]
     return x
 
 
-def _schedule(z, x, mean, ls_chol, ls, os_, jit, w_ls, w_pred, inverse=False):
-    """One state through the kernels' schedule at stripe widths w_ls
-    (launch 2) and w_pred (launch 3)."""
+def _schedule(z, x, mean, ls_chol, ls, os_, jit, width):
+    """One state through the kernels' schedule at stripe width `width`
+    (both solves)."""
     m, n = z.shape[0], x.shape[0]
     dt = z.dtype
     a, b = z / ls, x / ls
@@ -150,28 +120,28 @@ def _schedule(z, x, mean, ls_chol, ls, os_, jit, w_ls, w_pred, inverse=False):
     l = chol.cholesky_plain(kzz[None], jit.reshape(1), False)[0][0]
     rhs_ls = torch.cat([torch.tril(ls_chol), mean[:, None]], dim=1)
     wls = torch.full((m, m + 1), float("nan"), dtype=dt)
-    stripes = -(-(m + 1) // w_ls)
+    stripes = -(-(m + 1) // width)
     for s in [stripes - 1] + list(range(stripes - 1)):  # the kernel's order
-        c0 = s * w_ls
-        c1 = min(c0 + w_ls, m + 1)
-        p_first = 0 if c0 + w_ls > m else c0 // NB
-        xs = torch.zeros((m, w_ls), dtype=dt)
+        c0 = s * width
+        c1 = min(c0 + width, m + 1)
+        p_first = 0 if c0 + width > m else c0 // NB
+        xs = torch.zeros((m, width), dtype=dt)
         xs[p_first * NB:, :c1 - c0] = rhs_ls[p_first * NB:, c0:c1]
-        xs = _solve_stripe(l, xs, p_first, inverse)
+        xs = _solve_stripe(l, xs, p_first)
         wls[p_first * NB:, c0:c1] = xs[p_first * NB:, :c1 - c0]
     nt = -(-m // NB)
     order = []
     for pair in range((nt + 1) // 2):
         order += [pair] if nt - 1 - pair == pair else [pair, nt - 1 - pair]
     mu, var = torch.empty(n, dtype=dt), torch.empty(n, dtype=dt)
-    for c0 in range(0, n, w_pred):
-        c1 = min(c0 + w_pred, n)
-        xs = torch.zeros((m, w_pred), dtype=dt)
+    for c0 in range(0, n, width):
+        c1 = min(c0 + width, n)
+        xs = torch.zeros((m, width), dtype=dt)
         xs[:, :c1 - c0] = kzx[:, c0:c1]
-        xs = _solve_stripe(l, xs, 0, inverse)
+        xs = _solve_stripe(l, xs, 0)
         pm = xs.T @ wls[:, m]
         p1 = (xs * xs).sum(0)
-        p2 = torch.zeros(w_pred, dtype=dt)
+        p2 = torch.zeros(width, dtype=dt)
         for i0 in order:
             cols = slice(i0 * NB, min(i0 * NB + NB, m))
             blk = wls[i0 * NB:, cols].T @ xs[i0 * NB:]
@@ -189,13 +159,11 @@ def _problem(m, n, d, seed, dtype=np.float64):
     return [np.asarray(v, dtype=dtype) for v in vals]
 
 
-@pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("m,n", [(1, 1), (31, 150), (100, 150), (128, 200), (490, 200)])
-def test_schedule_matches_plain_and_reference_f64(m, n, inverse):
+def test_schedule_matches_plain_and_reference_f64(m, n):
     args = _problem(m, n, 2, m + n)
     t = [torch.as_tensor(v) for v in args]
-    pl = K2.plan(m, n, 1, torch.float64)
-    mu, var = _schedule(*t, pl.ls.width, pl.predict.width, inverse)
+    mu, var = _schedule(*t, K2.plan(m, n, 1, torch.float64).width)
     mu_p, var_p = K2.fused_rbf_svgp_forward_plain(
         t[0], t[1], t[2][None], t[3][None], t[4][None], t[5].reshape(1), t[6].reshape(1))
     np.testing.assert_allclose(mu.numpy(), mu_p[0].numpy(), rtol=1e-10, atol=1e-10)
@@ -205,11 +173,11 @@ def test_schedule_matches_plain_and_reference_f64(m, n, inverse):
     np.testing.assert_allclose(var.numpy(), np.asarray(var_r), rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.parametrize("w_ls,w_pred", [(32, 32), (16, 4), (8, 16), (4, 8)])
-def test_schedule_every_width_f64(w_ls, w_pred):
+@pytest.mark.parametrize("width", [32, 16, 8, 4])
+def test_schedule_every_width_f64(width):
     """Every stripe width, ragged M and N, against the plain version."""
     t = [torch.as_tensor(v) for v in _problem(100, 37, 3, 5)]
-    mu, var = _schedule(*t, w_ls, w_pred)
+    mu, var = _schedule(*t, width)
     mu_p, var_p = K2.fused_rbf_svgp_forward_plain(
         t[0], t[1], t[2][None], t[3][None], t[4][None], t[5].reshape(1), t[6].reshape(1))
     np.testing.assert_allclose(mu.numpy(), mu_p[0].numpy(), rtol=1e-10, atol=1e-10)
@@ -223,8 +191,7 @@ def test_schedule_matches_pallas_kernel_interpret_f32(m, n):
     args = _problem(m, n, 3, 0, np.float32)
     mu_j, var_j = jax_fused(*[jnp.asarray(a) for a in args], interpret=True)
     t = [torch.as_tensor(a) for a in args]
-    pl = K2.plan(m, n, 1, torch.float32)
-    mu, var = _schedule(*t, pl.ls.width, pl.predict.width)
+    mu, var = _schedule(*t, K2.plan(m, n, 1, torch.float32).width)
     np.testing.assert_allclose(mu.numpy(), np.asarray(mu_j), rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(var.numpy(), np.asarray(var_j), rtol=2e-3, atol=2e-3)
 
@@ -234,6 +201,6 @@ def test_schedule_failed_factor_gives_nan():
     variance floor does not hide it."""
     t = [torch.as_tensor(v) for v in _problem(64, 10, 2, 3)]
     t[6] = torch.tensor(-10.0, dtype=torch.float64)
-    mu, var = _schedule(*t, 8, 8)
+    mu, var = _schedule(*t, 8)
     assert bool(torch.isnan(mu).any()) and bool(torch.isnan(var).any())
 
