@@ -38,7 +38,20 @@
    the models, and holds K2 on the path's own trained states to the plain
    route's accuracy (layer 0 against the f64 answer of the same system,
    and the recommendation means against the f64 models);
-6. prints the kernel line and, last, {"ok": true, "device": {...}}.
+6. drives the BO loop (mobocmf_tpu_torch/bo/loop.py::run_bo_loop) on the
+   card at the bench's width (mobocmf_tpu_torch/bench.py: 4 blackboxes,
+   120 points padded to m = 128, f32), at a cut depth (100 + 100 epochs,
+   100 conditioned steps), with the recommendation on and a temporary log
+   directory: (a) two q=1 JESMOC iterations, with the log files, phase
+   times, points, fidelities, observed HV and K1 / K2 launches of every
+   stage checked and printed; (b) a resume of the same directory to three
+   iterations; (c) one q=2 iteration, whose penalized pick launches K2;
+   (d) one random-baseline iteration with nothing that consumes models,
+   which must train nothing; (e) the checkpoints that (a) stored, restored
+   on the same iteration instead of retraining, bitwise equal to the saved
+   fitters; (f) one Pareto sample of the restored models with the device
+   polish, timed against the SLSQP polish;
+7. prints the kernel line and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -46,11 +59,17 @@ checkout of the repo, or when any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -564,6 +583,258 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     )
 
 
+LOOP_EPOCHS = 100  # 100 + 100 epochs and 100 conditioned steps (5000 + 15000, 15000 in full)
+# what run_bo_loop writes: file -> columns (the JAX package's names and columns)
+LOOP_LOGS = {
+    "fidelities_evaluated.txt": 1, "hypervolume_solution.txt": 1, "hypervolumes.txt": 6,
+    "iteration_seconds.txt": 3, "observed_hypervolumes.txt": 1, "pareto_resamples.txt": 3,
+    "phase_seconds.txt": 8, "points_evaluated.txt": 2, "process_starts.txt": 1,
+    "setup_breakdown.txt": 6,
+}
+
+
+class Tee(io.TextIOBase):
+    """Forward writes to stdout and keep a copy (the loop's log lines are
+    checked)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+class StageCounts:
+    """K1 and K2 launches per stage of run_bo_loop, read around the method
+    each stage calls (the counters themselves are set to 0 before each run
+    and read after it); `iteration` marks where each iteration ends."""
+
+    def __init__(self, P):
+        self.P = P
+        self.stages = [
+            ("train", P.BlackBoxMFDGPFitter, "train_mfdgps"),
+            ("pareto", P.BlackBoxMFDGPFitter, "sample_and_store_pareto_solution"),
+            ("cond", P.BlackBoxMFDGPFitter, "train_conditioned_mfdgps"),
+            ("acq", P.JESMOC_MFDGP, "get_nextpoint_coupled"),
+            ("batch", P.JESMOC_MFDGP, "get_batch_coupled"),
+            ("recommend", P.loop, "recommend_and_score"),
+        ]
+        self.records, self.current, self.saved = [], {}, []
+
+    def __enter__(self):
+        for stage, owner, name in self.stages:
+            inner = getattr(owner, name)
+            setattr(owner, name, self._counted(stage, inner))
+            self.saved.append((owner, name, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in self.saved:
+            setattr(owner, name, inner)
+        return False
+
+    def _counted(self, stage, inner):
+        P = self.P
+
+        @functools.wraps(inner)
+        def run(*args, **kwargs):
+            k1, k2 = P.chol.launches, P.fused_svgp.launches
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            got = self.current.setdefault(stage, [0, 0])
+            got[0] += P.chol.launches - k1
+            got[1] += P.fused_svgp.launches - k2
+            return out
+
+        return run
+
+    def iteration(self, it, state):
+        self.records.append(self.current)
+        self.current = {}
+
+
+def run_loop(P, log_dir, iterations, **kw):
+    """run_bo_loop of the port on the bench's problem at the cut depth, with
+    the kernel counters set to 0 just before it and read just after:
+    (state, stdout, stage launches per iteration, K1 launches, K2 launches)."""
+    config = P.BOConfig(**{**dict(num_bo_iterations=iterations, seed=0, log_dir=str(log_dir),
+                                  pad_data=True, num_epochs_1=LOOP_EPOCHS,
+                                  num_epochs_2=LOOP_EPOCHS, track_recommendation=True,
+                                  device="cuda"), **kw})
+    rng = np.random.default_rng(0)
+    x_init = rng.uniform(size=(120, 2)).astype(np.float32)
+    fid_init = np.concatenate([np.zeros(80), np.ones(40)]).astype(int)
+    tee = Tee(sys.stdout)
+    with StageCounts(P) as counts, contextlib.redirect_stdout(tee):
+        P.chol.reset_counts()
+        P.fused_svgp.reset_counts()
+        state = P.loop.run_bo_loop(P.loop_blackboxes, x_init, fid_init, config,
+                                   callback=counts.iteration)
+        torch.cuda.synchronize()
+        k1, k2 = P.chol.launches, P.fused_svgp.launches
+    return state, tee.text(), counts.records, k1, k2
+
+
+def log_rows(log_dir) -> dict:
+    return {name: np.loadtxt(log_dir / name, ndmin=2) for name in sorted(os.listdir(log_dir))
+            if name.endswith(".txt")}
+
+
+def check_new_points(label, state, n_before, q):
+    x, fid = state.x[n_before:], state.fidelities[n_before:]
+    check(x.shape == (q, 2) and bool(((x >= 0) & (x <= 1)).all()),
+          f"loop {label}: evaluated points {x.tolist()} outside [0, 1]^2")
+    check(set(fid.tolist()) <= {0, 1}, f"loop {label}: fidelities {fid.tolist()}")
+    check(all(np.isfinite(h) and h >= 0 for h in state.hypervolumes),
+          f"loop {label}: observed HV {state.hypervolumes}")
+
+
+def phase_loop(P, root) -> dict:
+    """Steps (a)-(f) of the loop phase; returns the launches of (a)."""
+    from mobocmf_tpu_torch.util import checkpoint
+
+    # (a) two q=1 JESMOC iterations, checkpoints stored for (e)
+    saved = []
+    save = checkpoint.save_fitter
+
+    def keep(path, fitter):
+        saved.append((path, fitter))
+        return save(path, fitter)
+
+    checkpoint.save_fitter = keep
+    try:
+        t0 = time.perf_counter()
+        state, _, stages, k1_a, k2_a = run_loop(P, root / "a", 2, store_models_in_disk=True)
+        t_a = time.perf_counter() - t0
+    finally:
+        checkpoint.save_fitter = save
+    rows = log_rows(root / "a")
+    check(set(rows) == set(LOOP_LOGS), f"loop (a): log files {sorted(rows)}")
+    for name, cols in LOOP_LOGS.items():
+        want = (1 if name == "process_starts.txt" else 2, cols)
+        check(rows[name].shape == want, f"loop (a): {name} holds {rows[name].shape}, not {want}")
+    phases, iters = rows["phase_seconds.txt"], rows["iteration_seconds.txt"]
+    check(bool(np.isfinite(phases).all() and (phases[:, 2:] >= 0).all()),
+          f"loop (a): phase seconds {phases.tolist()}")
+    check(bool(np.isfinite(iters).all()), f"loop (a): iteration seconds {iters.tolist()}")
+    check_new_points("(a)", state, 120, 2)
+    for it, st in enumerate(stages):
+        print(f"[loop] (a) iteration {it}: K1 / K2 launches per stage "
+              + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in st.items())
+              + f"; phase_seconds row {phases[it].tolist()} (it, n, setup, train, pareto, "
+              f"cond, acq, recommend); wall clock {iters[it, 2]:.3f} s", flush=True)
+        for stage in ("train", "cond"):
+            check(st.get(stage, [0, 0])[0] > 0, f"loop (a) iteration {it}: no K1 launch in {stage}")
+        for stage in ("acq", "recommend"):
+            check(st.get(stage, [0, 0])[1] > 0, f"loop (a) iteration {it}: no K2 launch in {stage}")
+    print(f"[loop] (a) 2 iterations in {t_a:.3f} s; K1 launches {k1_a}, K2 launches {k2_a}; "
+          f"observed HV {state.hypervolumes}; hypervolumes.txt "
+          f"{rows['hypervolumes.txt'].tolist()}", flush=True)
+
+    # (b) resume the same directory to three iterations
+    state, out, stages_b, _, _ = run_loop(P, root / "a", 3, store_models_in_disk=True)
+    check("[resume] replayed 2 evaluated points (2 iterations)" in out,
+          "loop (b): no replay of 2 iterations")
+    check(len(stages_b) == 1 and "[BO iter 0]" not in out, "loop (b): ran more than iteration 2")
+    after = log_rows(root / "a")
+    for name, before in rows.items():
+        check(after[name].shape == (before.shape[0] + 1, before.shape[1]),
+              f"loop (b): {name} went from {before.shape} to {after[name].shape}")
+    check_new_points("(b)", state, 122, 1)
+    print(f"[loop] (b) resumed: replayed 2 iterations, one row added to each of "
+          f"{len(after)} logs; phase_seconds row {after['phase_seconds.txt'][-1].tolist()}",
+          flush=True)
+
+    # (c) one q=2 iteration in a fresh directory
+    state, _, stages_c, _, _ = run_loop(P, root / "c", 1, q=2)
+    check_new_points("(c)", state, 120, 2)
+    x = state.x[120:]
+    check(state.fidelities[120] == state.fidelities[121] and np.abs(x[0] - x[1]).max() > 1e-6,
+          f"loop (c): the batch {x.tolist()} at fidelities {state.fidelities[120:].tolist()}")
+    batch = stages_c[0].get("batch", [0, 0])
+    check(batch[1] > 0, "loop (c): the penalized pick did not launch K2")
+    print(f"[loop] (c) q=2: {x.tolist()} at fidelity {state.fidelities[120]}; the penalized "
+          f"pick launched K1 {batch[0]}, K2 {batch[1]}", flush=True)
+
+    # (d) the random baseline with nothing that consumes models
+    state, _, _, k1_d, _ = run_loop(P, root / "d", 1, acquisition="random",
+                                    track_recommendation=False)
+    check_new_points("(d)", state, 120, 1)
+    check(k1_d == 0, f"loop (d): the random baseline launched K1 {k1_d} times")
+    print(f"[loop] (d) random baseline: K1 launches {k1_d}; x {state.x[120].tolist()} "
+          f"fidelity {state.fidelities[120]}", flush=True)
+
+    # (e) restore the checkpoints of (a)'s iteration 0 instead of retraining
+    os.makedirs(root / "e" / "models")
+    shutil.copytree(root / "a" / "models" / "iter0", root / "e" / "models" / "iter0")
+    restored = []
+    restore = checkpoint.restore_fitter
+
+    def spy(path, device=None):
+        restored.append((path, restore(path, device)))
+        return restored[-1][1]
+
+    checkpoint.restore_fitter = spy
+    try:
+        state, out, stages_e, _, _ = run_loop(P, root / "e", 1, load_models_from_disk=True)
+    finally:
+        checkpoint.restore_fitter = restore
+    check(f"[BO iter 0] restored models from {root / 'e' / 'models' / 'iter0'}" in out,
+          "loop (e): the log does not say the models were restored")
+    check("train" not in stages_e[0] and "cond" not in stages_e[0],
+          f"loop (e): trained after restoring ({stages_e[0]})")
+    check_new_points("(e)", state, 120, 1)
+    by_kind = {os.path.basename(p): f for p, f in saved if f"{os.sep}iter0{os.sep}" in p}
+    check(len(restored) == 2, f"loop (e): {len(restored)} fitters restored")
+    equal = 0
+    for path, fitter in restored:
+        ref = by_kind[os.path.basename(path)]
+        names = [(n, False) for n in ref.obj_names] + [(n, True) for n in ref.con_names]
+        for n, c in names:
+            a = P.tree_leaves(ref.get_model(n, c).params)
+            b = P.tree_leaves(fitter.get_model(n, c).params)
+            check(len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b)),
+                  f"loop (e): restored {n} differs from the saved one")
+            equal += len(a)
+    print(f"[loop] (e) restored uncond and cond of iteration 0 instead of training: "
+          f"{equal} parameter tensors bitwise equal to the saved fitters'; stages run "
+          f"{sorted(stages_e[0])}", flush=True)
+
+    # (f) one Pareto sample of the restored models per polish
+    base = next(f for p, f in restored if os.path.basename(p) == "uncond")
+    for polish in ("slsqp", "device"):
+        fitter = base.copy_uncond()
+        fitter.polish = polish
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = fitter.sample_and_store_pareto_solution()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        pset = sol.pareto_set[sol.mask]
+        check(sol.num_valid >= 1 and bool(torch.isfinite(sol.pareto_front[sol.mask]).all()),
+              f"loop (f) {polish}: Pareto set of {sol.num_valid} points")
+        # feasible for the constraint samples it was solved on (MOOP keeps
+        # c(x) >= -threshold), unless every draw failed and the reference's
+        # least-infeasible fallback ran (fit/fitter.py)
+        slack = min(float((P.rff.eval_sample_fn(s, pset) + thr).min())
+                    for s, thr in zip(fitter.samples_cons, fitter.thresholds_cons))
+        fallback = fitter.pareto_tries > P.MAX_TRIES_FOR_FEASIBLE_GRID
+        check(fallback or slack >= -1e-5,
+              f"loop (f) {polish}: a Pareto point violates a sampled constraint by {-slack:.3e}")
+        print(f"[loop] (f) Pareto sample with polish={polish}: {seconds:.3f} s, "
+              f"{fitter.pareto_tries} MOOP attempt(s), {sol.num_valid} Pareto points, least "
+              f"constraint slack {slack:.3e}"
+              + (" (least-infeasible fallback)" if fallback else ""), flush=True)
+    return dict(k1=k1_a, k2=k2_a)
+
+
 def card_name_and_power_limit() -> str:
     try:
         smi = subprocess.run(
@@ -584,6 +855,9 @@ def main() -> int:
         from mobocmf_tpu_torch import BlackBoxMFDGPFitter, _build
         from mobocmf_tpu_torch.acquisition import optimize
         from mobocmf_tpu_torch.acquisition.jesmoc import JESMOC_MFDGP, coupled_acq_stacked
+        from mobocmf_tpu_torch.bench import bench_blackboxes
+        from mobocmf_tpu_torch.bo import loop
+        from mobocmf_tpu_torch.fit.fitter import MAX_TRIES_FOR_FEASIBLE_GRID
         from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
         from mobocmf_tpu_torch.fit import trainer
         from mobocmf_tpu_torch.kernels import rbf
@@ -592,6 +866,7 @@ def main() -> int:
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.profile_k2 import k2_split, yardstick_us
         from mobocmf_tpu_torch.profiling import device_ms, k2_problem, loop_ms
+        from mobocmf_tpu_torch.sampling import rff
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
     except ImportError as exc:
@@ -618,7 +893,8 @@ def main() -> int:
                             optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
                             recommendation_model_pass=recommendation_model_pass,
                             k2_problem=k2_problem, k2_split=k2_split,
-                            yardstick_us=yardstick_us)
+                            yardstick_us=yardstick_us, loop=loop, BOConfig=loop.BOConfig,
+                            rff=rff, MAX_TRIES_FOR_FEASIBLE_GRID=MAX_TRIES_FOR_FEASIBLE_GRID)
         k1 = phase_k1(P)
         k2 = phase_k2(P)
         phase_reference(P)
@@ -632,6 +908,9 @@ def main() -> int:
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
         run_b = run_slice(P, "b128", bench128, 120, 50, COND_ITERS)
+        P.loop_blackboxes = bench_blackboxes(torch.device("cuda"))
+        with tempfile.TemporaryDirectory() as tmp:
+            run_loop_a = phase_loop(P, Path(tmp))
         time_k1(P, k1)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -654,6 +933,9 @@ def main() -> int:
             "source": "mobocmf_tpu_torch/csrc/chol.cu",
             "replaces": "mobocmf_tpu/linalg/chol.py:61",
             "launches": run_a["k1_train"] + run_a["k1_slice"],
+            "launches_by_path": {"bc512": run_a["k1_train"] + run_a["k1_slice"],
+                                 "b128": run_b["k1_train"] + run_b["k1_slice"],
+                                 "loop": run_loop_a["k1"]},
             "max_abs_err": k1_rec["max_abs_err"],
             "ms": k1_rec["ms"],
             "plain_ms": k1_rec["plain_ms"],
@@ -667,6 +949,9 @@ def main() -> int:
             "source": "mobocmf_tpu_torch/csrc/fused_svgp.cu",
             "replaces": "mobocmf_tpu/linalg/fused_svgp.py:100",
             "launches": run_a["k2_acq"] + run_a["k2_rec"],
+            "launches_by_path": {"bc512": run_a["k2_acq"] + run_a["k2_rec"],
+                                 "b128": run_b["k2_acq"] + run_b["k2_rec"],
+                                 "loop": run_loop_a["k2"]},
             "max_abs_err": k2_rec["max_abs_err"],
             "ms": k2_rec["ms"],
             "plain_ms": k2_rec["plain_ms"],

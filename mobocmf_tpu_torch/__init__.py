@@ -7,11 +7,15 @@ counterpart is found by name. It imports torch, numpy and scipy only —
 never jax, and nothing of `mobocmf_tpu`.
 
 Ported so far: the MFDGP model and its ELBO, two-phase stacked training
-through `BlackBoxMFDGPFitter`, RFF Pareto sampling (MOOP), conditioned
-training, the JESMOC all-fidelity candidate search (`JESMOC_MFDGP`) and the
-recommendation pass, with two hand-written CUDA kernels: the blocked
+through `BlackBoxMFDGPFitter`, RFF Pareto sampling (MOOP, SLSQP or device
+polish), conditioned training, the JESMOC all-fidelity candidate search
+(`JESMOC_MFDGP`) with q > 1 batches, the random baseline, and the BO loop
+(`bo/loop.py::run_bo_loop`: log files and resume, recommendation scoring,
+checkpoints, warm start), with two hand-written CUDA kernels: the blocked
 Cholesky (K1, `linalg/chol.py`, `csrc/chol.cu`) and the fused RBF-SVGP
-predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`).
+predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`). Entry
+scripts: `python -m mobocmf_tpu_torch.examples.toy_synthetic_2D_JESMOCMF`
+and `python -m mobocmf_tpu_torch.bench`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU and no device named they raise (core/device.py).

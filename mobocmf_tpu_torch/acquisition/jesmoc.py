@@ -18,6 +18,10 @@ ACQ_INV_SOLVES default), and one forward scores both. Without gradients
 (the raw-sample screening) each model's layer 0 runs through K2 with
 B = 2 x blackboxes; the L-BFGS loop keeps the plain predictive.
 
+A q > 1 batch is filled at the chosen fidelity by greedy
+local-penalization picks (`get_batch_coupled`, acquisition/batch.py), each
+a search whose screening goes through K2 as well.
+
 Construction follows the reference's contract: the passed fitter is
 snapshotted as the unconditioned model, then, when model_cond is not
 given, Pareto sampling and conditioned training run here and turn the
@@ -30,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from mobocmf_tpu_torch.acquisition.batch import PAD_VALUE, penalized_acq
 from mobocmf_tpu_torch.acquisition.optimize import optimize_acqf_box, optimize_acqf_box_multi
 from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
@@ -110,6 +115,25 @@ def optimize_coupled_jes_all_fidelities(
     return optimize_acqf_box_multi(
         lambda xx: _coupled_gain_all_stacked(pair, xx, states), config.num_fidelities,
         input_dim, generator, num_restarts=num_restarts, raw_samples=raw_samples,
+        maxiter=maxiter, dtype=z.dtype, device=z.device, raw=raw,
+    )
+
+
+def optimize_coupled_jes_penalized(
+    su_p, su_c, sc_p, sc_c, config, fidelity: int, chosen: torch.Tensor, generator,
+    input_dim: int, rho: float, num_restarts: int = 5, raw_samples: int = 200,
+    maxiter: int = 200, raw=None,
+):
+    """One greedy batch pick: the coupled JES acquisition at `fidelity` with
+    a local-penalization repulsion factor around `chosen` (k, d),
+    PAD_VALUE-padded (acquisition/batch.py). Its screening runs without
+    gradients, so each model's layer 0 goes through K2 there."""
+    pair = _pair(su_p, su_c, sc_p, sc_c, config)
+    states = pair_states(pair)
+    z = su_c.z_x[0]
+    acq = penalized_acq(lambda xx: _coupled_gain_stacked(pair, fidelity, xx, states), chosen, rho)
+    return optimize_acqf_box(
+        acq, input_dim, generator, num_restarts=num_restarts, raw_samples=raw_samples,
         maxiter=maxiter, dtype=z.dtype, device=z.device, raw=raw,
     )
 
@@ -303,3 +327,30 @@ class JESMOC_MFDGP:
         if self.eval_highest_fidelity:
             return self._get_nextpoint_coupled_highest_fidelity(iteration, verbose)
         return self._get_nextpoint_coupled(iteration, verbose)
+
+    def get_batch_coupled(self, fidelity: int, q: int, x0=None, rho=None) -> torch.Tensor:
+        """Greedy local-penalization q-batch at `fidelity` (the JAX
+        package's :459-487; the reference is q=1 only). `x0` (k0, d) seeds
+        the chosen set, so the q=1 maximizer can be the batch's first
+        point. Returns (q, d) candidates."""
+        stacked = self._stacked(fidelity)
+        if stacked is None:
+            raise ValueError(f"no blackboxes registered at fidelity {fidelity}")
+        d = self._input_dim()
+        z = stacked[1].z_x[0]
+        if rho is None:
+            rho = 0.05 * (d**0.5)
+        seed = (
+            torch.zeros((0, d), dtype=z.dtype, device=z.device) if x0 is None
+            else torch.as_tensor(x0).to(z).reshape(-1, d)
+        )
+        k0 = seed.shape[0]
+        chosen = torch.cat([seed, torch.full((q, d), PAD_VALUE, dtype=z.dtype, device=z.device)])
+        for k in range(q):
+            x_k, _ = optimize_coupled_jes_penalized(
+                *stacked, fidelity, chosen, self.generator, d, float(rho),
+                raw_samples=self.acq_raw_samples, maxiter=self.acq_maxiter,
+            )
+            chosen = chosen.clone()
+            chosen[k0 + k] = x_k.detach()
+        return chosen[k0:]

@@ -54,9 +54,10 @@ class BlackBoxMFDGPFitter:
     ):
         """Constructor defaults of the JAX fitter (fitter.py:39-58).
         pad_data: bucket the training rows (fit/bucketing.py). polish: the
-        MOOP's polish of each objective's optimum, "slsqp" (host scipy) or
-        "none". device: `cuda` unless named; dtype: float32 unless named
-        (the CPU parity tests pass float64)."""
+        MOOP's polish of each objective's optimum, "slsqp" (host scipy),
+        "device" (batched penalty L-BFGS on the device) or "none". device:
+        `cuda` unless named; dtype: float32 unless named (the CPU parity
+        tests pass float64)."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.num_obj = 0
@@ -97,6 +98,9 @@ class BlackBoxMFDGPFitter:
         # one entry per trained phase: epochs, seconds, first/last summed
         # loss, K1 launches and ladder escalations during the phase
         self.phase_stats: List[dict] = []
+        # seconds of initialize_mfdgp's warm-start fetch, host math and ship
+        # to the device, summed over blackboxes (models/mfdgp.py::init_mfdgp)
+        self.init_timings: Dict[str, float] = {}
 
         self.pareto_solution: Optional[ParetoSolution] = None
         self.samples_objs = None
@@ -149,6 +153,7 @@ class BlackBoxMFDGPFitter:
             generator=self.host_generator,
             device=self.device,
             dtype=self.dtype,
+            timings=self.init_timings,
         )
         y_dev = torch.as_tensor(y_np, dtype=self.dtype, device=self.device)
         if is_constraint:

@@ -7,11 +7,13 @@ position: params = (layers, raw_noises), layer = (kernel dict,
 the config as a plain dict. A single model (raw_noises of shape (F,))
 becomes a B = 1 port model; a stacked one (raw_noises (B, F)) keeps its B.
 `model_to_numpy` is the inverse: the blackbox dim is dropped when B = 1.
+`fitter_from_numpy` carries a whole fitter across: its training data, both
+stacks of models, the thresholds and the Pareto solution.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +73,61 @@ def model_to_numpy(model: M.MFDGPModel) -> Tuple[M.MFDGPParams, M.MFDGPConsts, D
         noise_upper=n(c.noise_upper),
     )
     return tree_map(n, model.params), consts, dict(model.config._asdict())
+
+
+def fitter_from_numpy(
+    num_fidelities: int,
+    batch_size: int,
+    x_train,
+    fidelities,
+    row_weights,
+    num_real: int,
+    objs: Sequence[Tuple],
+    cons: Sequence[Tuple],
+    thresholds: Sequence[float],
+    pareto: Optional[Tuple] = None,
+    device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
+    **fitter_kwargs,
+):
+    """A BlackBoxMFDGPFitter holding given models. x_train, fidelities,
+    row_weights: the (padded) training rows as numpy; objs / cons: (name,
+    params, consts, config dict, y) per blackbox, params and consts as for
+    `model_from_numpy`; pareto: (pareto_set, pareto_front, mask, num_valid)
+    or None. fitter_kwargs go to the constructor (schedule, polish, ...)."""
+    from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
+    from mobocmf_tpu_torch.moop.moop import ParetoSolution
+
+    fitter = BlackBoxMFDGPFitter(num_fidelities, batch_size, device=device, dtype=dtype,
+                                 **fitter_kwargs)
+    dev = fitter.device
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.array(a)).to(device=dev, dtype=dt)
+
+    fitter._x_np = np.asarray(x_train, dtype=np.float64)
+    fitter.x_train = t(x_train)
+    fitter.fidelities = t(fidelities, torch.int32)
+    fitter.row_weights = t(row_weights)
+    fitter.num_real = int(num_real)
+    for (name, params, consts, config, y), is_con in [(e, False) for e in objs] + [
+        (e, True) for e in cons
+    ]:
+        model = model_from_numpy(params, consts, config, dev, dtype)
+        if is_con:
+            fitter.models_cons[name] = model
+            fitter.con_names.append(name)
+            fitter.ys_cons.append(t(y))
+        else:
+            fitter.models_objs[name] = model
+            fitter.obj_names.append(name)
+            fitter.ys_objs.append(t(y))
+    fitter.thresholds_cons = [float(v) for v in thresholds]
+    fitter.num_obj, fitter.num_con = len(fitter.obj_names), len(fitter.con_names)
+    fitter.models_uncond_trained = True
+    if pareto is not None:
+        pset, pfront, mask, num_valid = pareto
+        fitter.pareto_solution = ParetoSolution(
+            t(pset), t(pfront), t(mask, torch.bool), int(num_valid)
+        )
+    return fitter

@@ -36,6 +36,7 @@ its output.
 from __future__ import annotations
 
 import enum
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -167,6 +168,7 @@ def init_mfdgp(
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
     dtype: Optional[torch.dtype] = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> MFDGPModel:
     """Build an MFDGP for one blackbox (B = 1) on `device` in `dtype`.
 
@@ -181,7 +183,12 @@ def init_mfdgp(
 
     init_params_to_prior_and_fix_them: kernel hyperparameters at fixed
     prior values (layer 0 lengthscale 0.25*d, deep layers ls_x1 = 2.5*d,
-    ls_f = 1, ls_x2 = 0.25*d), excluded from training by the trainer."""
+    ls_f = 1, ls_x2 = 0.25*d), excluded from training by the trainer.
+
+    timings: a dict that gains the seconds of the warm-start fetch
+    ("fetch", the previous model copied to the host), the host math
+    ("host") and the ship to `device` ("ship"), the JAX package's
+    INIT_TIMINGS (the BO loop's setup_breakdown.txt)."""
     if whitened_init not in ("match", "prior"):
         raise ValueError(f"whitened_init must be 'match' or 'prior', got {whitened_init!r}")
     device = resolve_device(device)
@@ -189,6 +196,13 @@ def init_mfdgp(
     if jitter is None:
         jitter = cfg.default_jitter(dtype)
     f64 = torch.float64
+    t0 = time.perf_counter()
+    if previously_trained is not None:
+        prev_kernels = [tree_map(lambda a: _host(a[0]), lp.kernel)
+                        for lp in previously_trained.params.layers]
+        prev_acq_eps = _host(previously_trained.consts.acq_eps[0])
+    t_fetch = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     x_np = np.asarray(x_train, dtype=np.float64)
     y_np = np.asarray(y_train, dtype=np.float64).reshape(-1)
@@ -211,7 +225,7 @@ def init_mfdgp(
         init_ls = get_init_lengthscale(type_lengthscale, x_np[fid_np == ell])
 
         if previously_trained is not None:
-            kparams = tree_map(lambda a: _host(a[0]), previously_trained.params.layers[ell].kernel)
+            kparams = prev_kernels[ell]
         elif init_params_to_prior_and_fix_them:
             if ell == 0:
                 kparams = rbf.init_scale_rbf_params(0.25 * d, 1.0, d)
@@ -273,11 +287,14 @@ def init_mfdgp(
         raw_noises.append(Interval(lo, up).inverse(torch.tensor(init_noise, dtype=f64)))
 
     if previously_trained is not None:
-        acq_eps = _host(previously_trained.consts.acq_eps[0])
+        acq_eps = prev_acq_eps
     else:
         acq_eps = torch.randn(
             (num_fidelities, num_samples_for_acquisition), generator=generator, dtype=f64
         )
+
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     def ship(a):
         return torch.as_tensor(a, dtype=f64).to(device=device, dtype=dtype).unsqueeze(0)
@@ -304,6 +321,11 @@ def init_mfdgp(
         whitened=whitened,
         fix_kernel_params=init_params_to_prior_and_fix_them,
     )
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for k, v in (("fetch", t_fetch), ("host", t_host), ("ship", time.perf_counter() - t0)):
+            timings[k] = timings.get(k, 0.0) + v
     return MFDGPModel(params=params, consts=consts, config=config)
 
 

@@ -32,6 +32,7 @@ import torch
 
 from mobocmf_tpu_torch.core import config as cfg
 from mobocmf_tpu_torch.core.constraints import Positive
+from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
 from mobocmf_tpu_torch.kernels.rbf import scale_rbf_constrained
 from mobocmf_tpu_torch.models import mfdgp as M
 
@@ -260,11 +261,13 @@ def sample_prior(
     num_fidelities: int,
     n_features: int = cfg.RFF_NUM_FEATURES,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device: DeviceLike = None,
 ) -> MFDGPFunctionSample:
     """Prior sample of the whole stack (reference
     sample_function_from_prior_each_layer, mfdgp.py:277-288; fixed prior
-    hyperparameters, layer file :339-362 and :446-514)."""
+    hyperparameters, layer file :339-362 and :446-514), on `device`
+    (`cuda` unless named)."""
+    device = resolve_device(device)
     layers: List = []
     for ell, dr in enumerate(
         draw_layers(generator, num_fidelities, input_dims, n_features, dtype, device)

@@ -14,6 +14,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
 from mobocmf_tpu_torch.sampling import rff
 
 
@@ -26,20 +27,24 @@ def sample_problem(
     probe: Optional[np.ndarray] = None,
     min_joint_feasible: float = 0.05,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device: DeviceLike = None,
 ):
     """Prior-sampled objectives (two) and feasibility-calibrated constraints.
 
     Returns (objs, cons): lists of `rff.MFDGPFunctionSample` ground-truth
-    functions (evaluate with `rff.eval_sample(s, x, layer=fidelity)`). Every
+    functions (evaluate with `rff.eval_sample(s, x, layer=fidelity)`) on
+    `device` (`cuda` unless named; `generator` lives there too). Every
     draw, the 500-point probe included when `probe` is None, comes from
     `generator`, so the problem is a function of its seed."""
+    device = resolve_device(device)
     objs = [
         rff.sample_prior(generator, d, num_fidelities, dtype=dtype, device=device)
         for _ in range(2)
     ]
     if probe is None:
-        probe = torch.rand((500, d), generator=generator, dtype=torch.float64).numpy()
+        probe = torch.rand(
+            (500, d), generator=generator, dtype=torch.float64, device=device
+        ).cpu().numpy()
     probe_t = torch.as_tensor(probe, dtype=dtype, device=device)
     cons: List = []
     joint_feas = np.ones(probe.shape[0], dtype=bool)

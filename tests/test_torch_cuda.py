@@ -248,3 +248,94 @@ def test_acquisition_predictive_k2_route_matches_plain_f64(cuda_device):
     plain = M.predict_for_acquisition_all(model.params, model.consts, model.config, xq)
     for a, b in zip(via_k2, plain):
         torch.testing.assert_close(a, b.detach(), rtol=1e-9, atol=1e-12)
+
+
+def _bowl(shift, offset):
+    return lambda xs: (np.atleast_2d(xs)[:, 0] - shift) ** 2 + np.atleast_2d(xs)[:, 1] ** 2 + offset
+
+
+def test_bo_loop_fast_iteration_on_card(cuda_device, tmp_path):
+    """One --fast-sized iteration of run_bo_loop on the card, with the
+    recommendation: K1 trains, K2 screens and recommends, the logs are
+    written."""
+    from mobocmf_tpu_torch.bo import loop
+
+    con = lambda xs: 0.55 - np.atleast_2d(xs)[:, 0]  # noqa: E731
+    bbs = [loop.Blackbox("obj1", [_bowl(0.25, 0.3), _bowl(0.25, 0.0)]),
+           loop.Blackbox("obj2", [_bowl(0.75, 0.3), _bowl(0.75, 0.0)]),
+           loop.Blackbox("con1", [con, con], is_constraint=True, threshold=0.0)]
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(12, 2))
+    fid = np.concatenate([np.zeros(8), np.ones(4)]).astype(int)
+    config = loop.BOConfig(num_bo_iterations=1, num_epochs_1=5, num_epochs_2=8, opt_grid_size=25,
+                           pareto_set_size=6, seed=1, log_dir=str(tmp_path),
+                           track_recommendation=True, recommendation_grid_size=200)
+    chol.reset_counts()
+    fused_svgp.reset_counts()
+    state = loop.run_bo_loop(bbs, x, fid, config)
+    assert chol.launches > 2 * (5 + 8) and fused_svgp.launches >= 2
+    assert state.x.shape == (13, 2) and bool(((state.x >= 0) & (state.x <= 1)).all())
+    phases = np.loadtxt(tmp_path / "phase_seconds.txt")
+    assert phases.shape == (8,) and np.isfinite(phases).all() and phases[3] > 0
+    assert np.loadtxt(tmp_path / "hypervolumes.txt").shape == (6,)
+
+
+def _card_fitter(device):
+    from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(12, 2))
+    fid = np.arange(12) % 2
+    f = BlackBoxMFDGPFitter(2, 12, num_epochs_1=3, num_epochs_2=3, opt_grid_size=20,
+                            pareto_set_size=5, pad_data=True, seed=3, device=device)
+    f.initialize_mfdgp(x, np.sin(3 * x[:, 0]) + x[:, 1], fid, "obj1")
+    f.initialize_mfdgp(x, np.cos(2 * x[:, 1]), fid, "obj2")
+    f.initialize_mfdgp(x, 0.5 - x[:, 0], fid, "con1", is_constraint=True)
+    f.train_mfdgps()
+    return f
+
+
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    from mobocmf_tpu_torch.util import checkpoint
+    from mobocmf_tpu_torch.util.tree import tree_leaves
+
+    f = _card_fitter(cuda_device)
+    checkpoint.save_fitter(str(tmp_path / "ck"), f)
+    r = checkpoint.restore_fitter(str(tmp_path / "ck"))
+    assert r.device.type == "cuda" and r.dtype == torch.float32
+    for name in f.obj_names:
+        for a, b in zip(tree_leaves(f.models_objs[name]), tree_leaves(r.models_objs[name])):
+            if isinstance(a, torch.Tensor):
+                assert b.device.type == "cuda" and torch.equal(a, b)
+    assert torch.equal(f.generator.get_state(), r.generator.get_state())
+    s1 = f.sample_and_store_pareto_solution()
+    s2 = r.sample_and_store_pareto_solution()
+    for a, b in zip(s1[:3], s2[:3]):
+        assert torch.equal(a, b)
+
+
+def test_device_polish_on_card_matches_cpu_f64(cuda_device):
+    """The device polish of one objective of a trained f64 model's RFF
+    samples, on the card and on the CPU from the same samples and grid."""
+    from mobocmf_tpu_torch.moop.moop import MOOP, SampledFunction
+    from mobocmf_tpu_torch.sampling import rff
+    from mobocmf_tpu_torch.util.tree import tree_map
+
+    samples = [rff.sample_prior(torch.Generator().manual_seed(i), 2, 2, n_features=50,
+                                device="cpu") for i in range(3)]
+    grid = np.random.default_rng(5).uniform(size=(80, 2))
+    out = []
+    for dev in ("cpu", cuda_device):
+        fns = [SampledFunction(rff.eval_sample_fn, tree_map(lambda t: t.to(dev), s))
+               for s in samples]
+        m = MOOP(fns[:2], fns[2:], input_dim=2, feasible_values=np.array([-0.5]),
+                 polish="device")
+        like = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            cons = torch.stack([f(torch.as_tensor(grid, device=dev)) for f in fns[2:]])
+            evals = fns[0](torch.as_tensor(grid, device=dev)).cpu().numpy()
+        feas = m._feasible_mask(cons.cpu().numpy(), True)
+        out.append(m.optimize_obj_globally_device(0, evals, feas, grid, like))
+    assert (out[0] is None) == (out[1] is None)
+    if out[0] is not None:
+        np.testing.assert_allclose(out[1], out[0], rtol=1e-7, atol=1e-9)

@@ -20,7 +20,20 @@ for mod in pkgutil.walk_packages(mobocmf_tpu_torch.__path__, "mobocmf_tpu_torch.
     importlib.import_module(mod.name)
 import chip_smoke
 from mobocmf_tpu_torch import BlackBoxMFDGPFitter, init_mfdgp
+from mobocmf_tpu_torch.acquisition.random_choice import Random_choice
+from mobocmf_tpu_torch.bench import bench_bo_iteration
+from mobocmf_tpu_torch.bo.loop import BOConfig, run_bo_loop
+from mobocmf_tpu_torch.examples.toy_synthetic_2D_JESMOCMF import main as toy_main
 from mobocmf_tpu_torch.models.convert import model_from_numpy
+from mobocmf_tpu_torch.sampling.rff import sample_prior
+from mobocmf_tpu_torch.test_functions.prior_problem import sample_problem
+from mobocmf_tpu_torch.util.checkpoint import restore_fitter
+
+walked = {m.name for m in pkgutil.walk_packages(mobocmf_tpu_torch.__path__, "mobocmf_tpu_torch.")}
+for name in ("bench", "bo.loop", "acquisition.batch", "acquisition.random_choice",
+             "util.hypervolume", "util.heartbeat", "util.checkpoint", "util.describe",
+             "examples.toy_synthetic_2D_JESMOCMF"):
+    assert "mobocmf_tpu_torch." + name in walked, name
 
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "mobocmf_tpu"
@@ -37,6 +50,13 @@ calls = [
     lambda: BlackBoxMFDGPFitter(2, 10),
     lambda: init_mfdgp(x, x[:, 0], fid, 2),
     lambda: model_from_numpy(None, None, {}, None, torch.float32),
+    lambda: sample_problem(torch.Generator()),
+    lambda: sample_prior(torch.Generator(), 2, 2),
+    lambda: run_bo_loop([], x, fid, BOConfig(num_bo_iterations=0)),
+    lambda: Random_choice(2, 2),
+    lambda: restore_fitter("missing"),
+    lambda: bench_bo_iteration(fast=True),
+    lambda: toy_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
 ]
 for call in calls:
     try:

@@ -132,7 +132,8 @@ def test_sample_posterior_stacked_matches_per_model_sampling():
 
 
 def test_sample_problem_calibrates_feasibility():
-    objs, cons = sample_problem(torch.Generator().manual_seed(0), d=2, num_constraints=2)
+    objs, cons = sample_problem(torch.Generator().manual_seed(0), d=2, num_constraints=2,
+                                device="cpu")
     assert len(objs) == 2 and len(cons) == 2
     probe = torch.rand((400, 2), generator=torch.Generator().manual_seed(1), dtype=F64)
     joint = torch.ones(400, dtype=torch.bool)
