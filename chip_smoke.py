@@ -8,12 +8,14 @@
 2. holds K1 (the batched Cholesky) against its plain PyTorch version on the
    card at the main path's shapes and more (B 1, 3, 4 x n 128 to 2048 at
    f32, on both sides of the plan's resident / L2 boundary and both
-   cluster sizes; B 3 x n 512, 1024 at f64), prints each shape's plan and
-   how many of its clusters the card holds at once; after the main path
-   (step 5) it times the kernel, the plain version and torch.linalg.cholesky
-   (the yardstick) there as device time per call (torch.profiler; the
-   wrapper's call time beside it), and reads the cost of one panel step
-   from the slope of time against n/32;
+   cluster sizes; B 3 x n 512, 1024 at f64), and at the exact-GP models'
+   shapes with and without the ladder (B 1, 3 x n 24, 32, 40, 96 at f32, B
+   1 x n 32 at f64), prints each shape's plan and how many of its clusters
+   the card holds at once; after every path it times the kernel, the
+   plain version and torch.linalg.cholesky (the yardstick) there as device
+   time per call (torch.profiler; the wrapper's call time beside it), the
+   MESMOC path's factor (B 1, n 32, f32, no ladder) too, and reads the
+   cost of one panel step from the slope of time against n/32;
 3. holds K2 (the fused RBF-SVGP predictive) against its plain PyTorch
    version at the JAX kernel test's problem, at the slice's shapes and at
    shapes that take every stripe width of its plan (printed per shape),
@@ -51,7 +53,21 @@
    on the same iteration instead of retraining, bitwise equal to the saved
    fitters; (f) one Pareto sample of the restored models with the device
    polish, timed against the SLSQP polish;
-7. prints the kernel line and, last, {"ok": true, "device": {...}}.
+7. runs the port's example_mesmoc_mfgp at its defaults (5 iterations, f32,
+   a temporary log directory): the four logs, finite non-negative
+   acquisition values, fidelities in {0, 1}, and K1 launches per iteration
+   equal to the count PERF.md predicted (MESMOC_K1_PER_ITER); K1 on one of
+   the path's own NLML Grams against the plain version; one f64 MFGP fit
+   and predict on the card against the CPU;
+8. runs one iteration of example_dtlz2_2048 --fast at the example's width
+   (2040 points padded to m = 2048, 3 fidelities, 4 objectives: K1 at
+   n = 2048, K2 at M = 2048) and one of example_batch_bo_10d --fast
+   (q = 16, d = 10), with K1 / K2 launches per stage (2 K2 per penalized
+   pick checked), holds K2 on each search's own screening states to the
+   plain route's accuracy (as for bc512), and times K2 at the shape the
+   path gave it against its plain version, with its plan;
+9. prints each phase's seconds, the kernel line and, last,
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -83,9 +99,10 @@ COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
 # K2 on the main path's f32 states against the plain route, from the H100
 # readings in PERF.md: at layer 0 K2 was 0.12x (bc512) and 0.24x (b128) as
 # far off the f64 answer as the plain route, so it may be no further off;
-# end to end (layer 1 on the plain route in both) 0.92x and 0.88x, bound 1.5x
+# end to end (layer 1 on the plain route in both) 0.92x and 0.88x, bound 1.5x.
+# The floors are f32 rounding of the answer, relative to its largest value.
 LAYER0_RATIO, LAYER0_FLOOR = 1.0, 1e-6
-END_TO_END_RATIO = 1.5
+END_TO_END_RATIO, END_TO_END_FLOOR = 1.5, 1e-6
 
 
 class CheckFailed(Exception):
@@ -114,6 +131,11 @@ def chol_bound_ms(batch: int, n: int, dtype) -> tuple:
 K1_SHAPES = [(torch.float32, b, n) for b in (1, 3, 4)
              for n in (128, 200, 384, 512, 768, 1024, 1536, 2048)]
 K1_SHAPES += [(torch.float64, 3, 512), (torch.float64, 3, 1024)]
+# the exact-GP family's shapes (the MESMOC example factors n = 32, B = 1,
+# without the ladder), each checked with and without the ladder
+K1_SMALL_N = 128
+K1_SHAPES += [(torch.float32, b, n) for b in (1, 3) for n in (24, 32, 40, 96)]
+K1_SHAPES += [(torch.float64, 1, 32)]
 
 
 def k1_input(b: int, n: int, dtype, dev):
@@ -136,22 +158,26 @@ def phase_k1(P) -> dict:
               f"memory per block, max active clusters {active}", flush=True)
         check(active >= 1, f"K1 {tag} n={n}: the card cannot hold one cluster of the plan")
         a, jit = k1_input(b, n, dtype, dev)
-        got, level = chol.cholesky(a, jit, ladder=True)
-        want, want_level = chol.cholesky_plain(a, jit, True)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        a_j = a.double() + jit.double()[:, None, None] * torch.eye(n, device=dev, dtype=torch.float64)
-        g64 = got.double()
-        recon = ((g64 @ g64.mT - a_j).abs().max() / a_j.abs().max()).item()
-        print(f"[k1] {tag} B={b} n={n}: max_rel_diff={rel:.3e} max_abs_err={err:.3e} "
-              f"recon={recon:.3e}", flush=True)
-        check(torch.equal(level, want_level), f"K1 {tag} B={b} n={n}: ladder rungs differ")
-        check(bool(torch.isfinite(got).all()), f"K1 {tag} B={b} n={n}: non-finite factor")
-        tol_rel, tol_recon = (1e-4, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
-        check(rel < tol_rel, f"K1 {tag} B={b} n={n}: differs from plain by {rel:.3e}")
-        check(recon < tol_recon, f"K1 {tag} B={b} n={n}: reconstruction error {recon:.3e}")
-        records[(tag, b, n)] = dict(max_abs_err=err, max_rel_diff=rel, recon=recon)
+        for ladder in ((False, True) if n < K1_SMALL_N else (True,)):
+            got, level = chol.cholesky(a, jit, ladder=ladder)
+            want, want_level = chol.cholesky_plain(a, jit, ladder)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            a_j = a.double() + jit.double()[:, None, None] * torch.eye(n, device=dev,
+                                                                       dtype=torch.float64)
+            g64 = got.double()
+            recon = ((g64 @ g64.mT - a_j).abs().max() / a_j.abs().max()).item()
+            what = f"{tag} B={b} n={n}" + ("" if ladder else " no ladder")
+            print(f"[k1] {what}: max_rel_diff={rel:.3e} max_abs_err={err:.3e} "
+                  f"recon={recon:.3e}", flush=True)
+            check(torch.equal(level, want_level), f"K1 {what}: ladder rungs differ")
+            check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite factor")
+            tol_rel, tol_recon = (1e-4, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+            check(rel < tol_rel, f"K1 {what}: differs from plain by {rel:.3e}")
+            check(recon < tol_recon, f"K1 {what}: reconstruction error {recon:.3e}")
+            records[(tag, b, n) if ladder else (tag + "-noladder", b, n)] = dict(
+                max_abs_err=err, max_rel_diff=rel, recon=recon)
 
     # an indefinite matrix gives a NaN diagonal from the failed pivot on
     a = spd(3, 256, 5, torch.float32, dev)
@@ -209,6 +235,21 @@ def time_k1(P, records: dict) -> None:
         print(f"[k1] {tag} B={b} n={n}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
               f"call_ms={rec['call_ms']:.4f} (a loop of wrapper calls, CUDA events)", flush=True)
+    # the MESMOC path's factor: B=1 n=32 f32 without the ladder
+    a, jit = k1_input(1, 32, torch.float32, dev)
+    jit = torch.zeros_like(jit)
+    rec = records[("f32-noladder", 1, 32)]
+    rec.update(
+        ms=P.device_ms(lambda: chol.cholesky(a, jit, ladder=False), 20, "chol_kernel", 1),
+        plain_ms=P.device_ms(lambda: chol.cholesky_plain(a, jit, False), 20),
+        library_ms=P.device_ms(lambda: torch.linalg.cholesky(a), 20),
+        call_ms=P.loop_ms(lambda: chol.cholesky(a, jit, ladder=False), 20),
+    )
+    rec["bound_ms"], rec["bound_by"] = chol_bound_ms(1, 32, torch.float32)
+    print(f"[k1] f32 B=1 n=32 no ladder (the MESMOC path's factor): ms={rec['ms']:.4f} "
+          f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) call_ms={rec['call_ms']:.4f}",
+          flush=True)
     # the cost of one 32-wide panel step: the slope of the kernel's time
     # against n/32 at one matrix, between two shapes of one cluster size
     for lo, hi in ((128, 200), (384, 512)):
@@ -369,31 +410,38 @@ def staged(P, fn):
     return out, seconds, P.chol.launches, P.chol.escalations(), P.fused_svgp.launches
 
 
-def layer0_errors(P, model, x) -> tuple:
-    """Layer 0 of trained f32 states at x through K2 (no gradient) and
-    through the plain route (gradients on: K1's factor, cuBLAS solves), each
-    as the max over mu and var of max|err| / max|f64 answer|. The f64 answer
-    is the same system: the f32 parameters in f64, factored at the jitter the
-    f32 factor ended on."""
+def layer0_f64(P, lp, st, config, x) -> tuple:
+    """The f64 answer of one layer-0 system: the f32 parameters in f64,
+    factored at the jitter the f32 factor ended on (plain version)."""
+    ls, os_ = P.rbf.scale_rbf_constrained(lp.kernel)
+    jitter = P.ladder_jitter(config.jitter, st.level, os_)
+    args = (st.z, x, lp.variational.mean, torch.tril(lp.variational.chol_raw), ls, os_, jitter)
+    return P.fused_svgp.fused_rbf_svgp_forward_plain(*(t.detach().double() for t in args))
+
+
+def rel_err(pairs) -> float:
+    """max over (got, want) pairs of max|got - want| / max|want|."""
+    return max(((got.detach().double() - want.detach().double()).abs().max()
+                / want.detach().double().abs().max()).item() for got, want in pairs)
+
+
+def layer0_routes(P, model, x) -> tuple:
+    """Layer 0 of trained f32 states at x through K2 (no gradient), through
+    the plain route (gradients on: K1's factor, cuBLAS solves) and in f64
+    (layer0_f64): three (mu, var) pairs."""
     M = P.M
     with torch.no_grad():
-        mu_k2, var_k2 = M.forward(model.params, model.consts, model.config, x, None,
-                                  max_fidelity=0)[0]
-    mu_pl, var_pl = M.forward(model.params, model.consts, model.config, x, None,
-                              max_fidelity=0)[0]
-    lp = model.params.layers[0]
-    ls, os_ = P.rbf.scale_rbf_constrained(lp.kernel)
-    level = M.compute_layer_states(model.params, model.consts, model.config)[0].level
-    jitter = P.ladder_jitter(model.config.jitter, level, os_)
-    args = (model.consts.z_x[0], x, lp.variational.mean, torch.tril(lp.variational.chol_raw),
-            ls, os_, jitter)
-    mu_ex, var_ex = P.fused_svgp.fused_rbf_svgp_forward_plain(*(t.detach().double() for t in args))
+        k2 = M.forward(model.params, model.consts, model.config, x, None, max_fidelity=0)[0]
+    plain = M.forward(model.params, model.consts, model.config, x, None, max_fidelity=0)[0]
+    st = M.compute_layer_states(model.params, model.consts, model.config)[0]
+    return k2, plain, layer0_f64(P, model.params.layers[0], st, model.config, x)
 
-    def err(mu, var):
-        return max(((mu.detach().double() - mu_ex).abs().max() / mu_ex.abs().max()).item(),
-                   ((var.detach().double() - var_ex).abs().max() / var_ex.abs().max()).item())
 
-    return err(mu_k2, var_k2), err(mu_pl, var_pl)
+def layer0_errors(P, model, x) -> tuple:
+    """K2's and the plain route's layer 0 against f64 (layer0_routes), each
+    as the max over mu and var of max|err| / max|f64 answer|."""
+    k2, plain, exact = layer0_routes(P, model, x)
+    return rel_err(zip(k2, exact)), rel_err(zip(plain, exact))
 
 
 def first_step_rungs(P, label, fitter, blackboxes) -> None:
@@ -401,19 +449,19 @@ def first_step_rungs(P, label, fitter, blackboxes) -> None:
     initial parameters) against cholesky_plain's on the same matrices."""
     model = P.trainer.stack_models([fitter.get_model(n, c) for n, _, c in blackboxes])
     seen = []
-    kernel = P.ops.cholesky
+    kernel = P.ops.k1_cholesky
 
     def spy(k, jitter=None, ladder=False):
         l, level = kernel(k, jitter, ladder)
         seen.append((k, jitter, ladder, level))
         return l, level
 
-    P.ops.cholesky = spy
+    P.ops.k1_cholesky = spy
     try:
         with torch.no_grad():
             P.M.compute_layer_states(model.params, model.consts, model.config)
     finally:
-        P.ops.cholesky = kernel
+        P.ops.k1_cholesky = kernel
     check(len(seen) == model.config.num_fidelities, f"{label}: {len(seen)} Kzz factorizations")
     for ell, (k, jitter, ladder, level) in enumerate(seen):
         jit = torch.as_tensor(jitter, dtype=k.dtype, device=k.device).expand(k.shape[0]).contiguous()
@@ -835,6 +883,265 @@ def phase_loop(P, root) -> dict:
     return dict(k1=k1_a, k2=k2_a)
 
 
+MESMOC_ITERS = 5
+# K1 launches per MESMOC iteration, predicted in PERF.md before the
+# first run: 3 fits x 150 NLML steps, 2 fidelities x 3 posterior states in
+# the search, 3 predicts in the recommendation HV; all at n = 32
+MESMOC_K1_PER_ITER = 3 * 150 + 2 * 3 + 3
+
+
+def phase_mesmoc(P, root) -> dict:
+    """The port's example_mesmoc_mfgp at its defaults (5 iterations, f32),
+    K1 launches per iteration and stage; K1 on one of the path's own NLML
+    Grams against the plain version; an f64 fit and predict on the card
+    against the CPU."""
+    E, G = P.mesmoc_example, P.mfgp
+    per_iter, current, kept = [], {}, {}
+
+    def counted(stage, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            k1 = P.chol.launches
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            current[stage] = current.get(stage, 0) + P.chol.launches - k1
+            if stage == "fit":
+                kept["models"] = out[0]
+            if stage == "recommendation_hv":
+                per_iter.append(dict(current))
+                current.clear()
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, stage in ((E, "fit_models", "fit"),
+                                   (P.MESMOC_MFGP, "get_nextpoint_coupled", "search"),
+                                   (E, "recommendation_hv", "recommendation_hv")):
+            stack.enter_context(P.patched(owner, name, counted(stage, getattr(owner, name))))
+        P.chol.reset_counts()
+        P.fused_svgp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = E.main(["--iters", str(MESMOC_ITERS), "--log-dir", str(root)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = P.chol.launches, P.fused_svgp.launches
+    for name in E.LOG_FILES:
+        rows = np.loadtxt(root / name, ndmin=2)
+        check(rows.shape[0] == MESMOC_ITERS and bool(np.isfinite(rows).all()),
+              f"mesmoc: {name} holds {rows.shape}")
+    values = [v for it in res["values"] for v in it.values()]
+    check(len(values) == 2 * MESMOC_ITERS and all(np.isfinite(v) and v >= 0 for v in values),
+          f"mesmoc: acquisition values {values}")
+    new_fid = res["fidelities"][-MESMOC_ITERS:]
+    check(set(new_fid.tolist()) <= {0, 1}, f"mesmoc: fidelities {new_fid.tolist()}")
+    for it, (st, counts) in enumerate(zip(res["stage_seconds"], per_iter)):
+        print(f"[mesmoc] iteration {it}: fit {st['fit']:.3f} s, search {st['search']:.3f} s, "
+              f"recommendation HV {st['recommendation_hv']:.3f} s; K1 launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f" = {sum(counts.values())}", flush=True)
+        check(sum(counts.values()) == MESMOC_K1_PER_ITER,
+              f"mesmoc iteration {it}: {sum(counts.values())} K1 launches, predicted "
+              f"{MESMOC_K1_PER_ITER}")
+    print(f"[mesmoc] {MESMOC_ITERS} iterations in {seconds:.3f} s "
+          f"({seconds / MESMOC_ITERS:.3f} s an iteration); K1 launches {k1}, K2 launches {k2}; "
+          f"fidelities {new_fid.tolist()}; observed HV {res['hypervolumes']}; recommendation "
+          f"HV {res['recommendation_hvs']} (optimal {res['optimal_hv']:.4f})", flush=True)
+    check(k1 == MESMOC_K1_PER_ITER * MESMOC_ITERS, f"mesmoc: K1 launches {k1}")
+
+    # K1 on the path's own NLML Gram (the constraint's, last iteration)
+    m = kept["models"]["con1"]
+    gram = G._train_gram(m.params, m.x_train, m.jitter, m.row_penalty).detach()[None]
+    got, _ = P.chol.cholesky(gram.contiguous(), None, ladder=False)
+    want, _ = P.chol.cholesky_plain(gram, torch.zeros(1, device=gram.device), False)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    g64 = got.double()
+    recon = ((g64 @ g64.mT - gram.double()).abs().max() / gram.double().abs().max()).item()
+    print(f"[mesmoc] K1 on the path's NLML Gram {tuple(gram.shape)} f32: max_rel_diff "
+          f"{rel:.3e} against the plain version, recon {recon:.3e}", flush=True)
+    check(rel < 1e-4 and recon < 1e-5, f"mesmoc: K1 on the path's Gram: {rel:.3e}, {recon:.3e}")
+
+    # an f64 MFGP fit and predict on the card against the CPU
+    rng = np.random.default_rng(0)
+    x = np.vstack([rng.uniform(size=(16, 2)), rng.uniform(size=(8, 2))])
+    fid = np.concatenate([np.zeros(16), np.ones(8)]).astype(int)
+    y = np.array([E.obj1(x[i:i + 1], fid[i])[0] for i in range(len(x))])
+    xf, valid, yp = E.padded(x, fid, 32, y)
+    xs = torch.as_tensor(np.random.default_rng(1).uniform(size=(64, 2)))
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = G.fit_mfgp(G.init_mfgp(xf, yp, 2, row_valid=valid, device=dev,
+                                       dtype=torch.float64), num_iters=50)
+        with torch.no_grad():
+            out.append([t.cpu() for t in G.predict(model, xs.to(dev), 1)])
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(out[1], out[0]))
+    print(f"[mesmoc] f64 fit (50 steps) and predict, card vs CPU: max rel diff {rel:.3e}",
+          flush=True)
+    check(rel < 1e-8, f"mesmoc: the f64 card path differs from the CPU path by {rel:.3e}")
+    return dict(k1=k1, k2=k2, seconds=seconds, k1_per_iter=[sum(c.values()) for c in per_iter])
+
+
+def k2_shapes_spy(P, calls: list):
+    """A stand-in for mfdgp's K2 entry that records each call's (B, M, N, d)."""
+    inner = P.M.fused_rbf_svgp_forward
+
+    def spy(z, x, mean, *rest):
+        calls.append((mean.shape[0], mean.shape[-1], x.shape[0], x.shape[1]))
+        return inner(z, x, mean, *rest)
+
+    return spy
+
+
+def keep_jesmoc(P, kept: list):
+    """get_nextpoint_coupled that keeps its JESMOC_MFDGP object."""
+    inner = P.JESMOC_MFDGP.get_nextpoint_coupled
+
+    @functools.wraps(inner)
+    def run(self, *args, **kwargs):
+        kept.append(self)
+        return inner(self, *args, **kwargs)
+
+    return run
+
+
+def k2_on_path(P, label, jes, d: int, points: int = 200) -> dict:
+    """K2 on a search's own trained f32 screening states (uncond and cond
+    of every blackbox). At layer 0: no further off the f64 answer than the
+    plain route. End to end (the top-fidelity acquisition means and
+    variances): each route's layer 0 fed through the same deeper layers in
+    f64, within END_TO_END_RATIO of the plain route's distance from the f64
+    layer 0 fed through them. The deeper layers run in f64 because in f32
+    their own rounding swamps layer 0's error (at m = 2048 both routes sit
+    ~0.9 output std from the f64 models, and the f32 ratio swings 0.5-2.2x
+    with the points), so an f32 end-to-end comparison cannot hold K2."""
+    trainer, M = P.trainer, P.M
+    unc, cond = jes.blackbox_mfdgp_fitter_uncond, jes.blackbox_mfdgp_fitter_cond
+    names = [(n, False) for n in unc.obj_names] + [(n, True) for n in unc.con_names]
+    su = trainer.stack_models([unc.get_model(n, c) for n, c in names])
+    sc = trainer.stack_models([cond.get_model(n, c) for n, c in names])
+    pair = trainer.stack_models([su, sc])
+    z = pair.consts.z_x[0]
+    x = torch.rand((points, d), generator=torch.Generator(device=z.device).manual_seed(SEED),
+                   dtype=z.dtype, device=z.device)
+    k2_l0, plain_l0, exact_l0 = layer0_routes(P, pair, x)
+    err_k2_l0, err_plain_l0 = rel_err(zip(k2_l0, exact_l0)), rel_err(zip(plain_l0, exact_l0))
+    f64 = functools.partial(P.tree_map, lambda t: t.double() if t.is_floating_point() else t)
+    params64, consts64 = f64(pair.params), f64(pair.consts)
+
+    def through_f64(layer0):
+        fixed = tuple(t.detach().double() for t in layer0)
+        with P.patched(M, "_layer0_k2", lambda *args: fixed), torch.no_grad():
+            return M.predict_for_acquisition(params64, consts64, pair.config, x.double(),
+                                             pair.config.num_fidelities - 1)
+
+    ref = through_f64(exact_l0)
+    err_k2, err_plain = (rel_err(zip(through_f64(l0), ref)) for l0 in (k2_l0, plain_l0))
+    print(f"[{label}] K2 on the search's {2 * len(names)} screening states (M = "
+          f"{z.shape[0]}, d = {d}, {points} points): layer 0 max rel err against f64 at "
+          f"the same jitter, K2 route {err_k2_l0:.3e}, plain route {err_plain_l0:.3e}; "
+          f"top-fidelity means and variances, each route's layer 0 through the f64 deeper "
+          f"layers against the f64 layer 0 through them, K2 route {err_k2:.3e}, plain route "
+          f"{err_plain:.3e}", flush=True)
+    check(err_k2_l0 <= LAYER0_RATIO * err_plain_l0 + LAYER0_FLOOR,
+          f"{label}: layer 0 through K2 is {err_k2_l0:.3e} off, the plain route {err_plain_l0:.3e}")
+    check(err_k2 <= END_TO_END_RATIO * err_plain + END_TO_END_FLOOR,
+          f"{label}: top fidelity through K2 {err_k2:.3e} off, plain route {err_plain:.3e}")
+    return dict(layer0=(err_k2_l0, err_plain_l0), end_to_end=(err_k2, err_plain))
+
+
+def time_k2_shape(P, label, b, m, n, d) -> dict:
+    """K2 against its plain version on k2_problem at a path's shape: the
+    plan, max |err|, device time per call, the plain version's, the bound."""
+    K2 = P.fused_svgp
+    sp = K2.plan(m, n, b, torch.float32)
+    args = P.k2_problem(b, m, n, d, m + n, torch.float32, torch.device("cuda"))
+    with torch.no_grad():
+        mu, var = K2.fused_rbf_svgp_forward(*args)
+        mu_p, var_p = K2.fused_rbf_svgp_forward_plain(*args)
+        torch.cuda.synchronize()
+        err = max((mu - mu_p).abs().max().item(), (var - var_p).abs().max().item())
+        close = all(bool(torch.allclose(a, w, rtol=2e-3, atol=2e-3))
+                    for a, w in ((mu, mu_p), (var, var_p)))
+        ms = P.device_ms(lambda: K2.fused_rbf_svgp_forward(*args), 10)
+        plain_ms = P.device_ms(lambda: K2.fused_rbf_svgp_forward_plain(*args), 10)
+    bound_ms, bound_by = k2_bound_ms(b, m, n, d, torch.float32)
+    print(f"[{label}] K2 at the path's shape B={b} M={m} N={n} d={d} f32: plan stripe "
+          f"W={sp.width}, {sp.smem_bytes} B per solve block, grids {(-(-(m + 1) // sp.width), b)}"
+          f" and {(-(-n // sp.width), b)}; max_abs_err={err:.3e} (tol 2e-3) device ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    check(close, f"{label}: K2 at B={b} M={m} N={n} d={d} differs from plain by {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                width=sp.width)
+
+
+def run_example(P, label, main, argv):
+    """One example entry point with the kernel counters set to 0 just
+    before it and read just after: (state, K1 / K2 launches per stage,
+    K1, K2, the kept JESMOC object, the K2 call shapes, seconds)."""
+    calls, kept = [], []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(P.patched(P.M, "fused_rbf_svgp_forward", k2_shapes_spy(P, calls)))
+        stack.enter_context(P.patched(P.JESMOC_MFDGP, "get_nextpoint_coupled",
+                                    keep_jesmoc(P, kept)))
+        counts = stack.enter_context(StageCounts(P))
+        P.chol.reset_counts()
+        P.fused_svgp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = P.chol.launches, P.fused_svgp.launches
+    stages = counts.current
+    print(f"[{label}] one iteration in {seconds:.3f} s; K1 / K2 launches per stage "
+          + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in stages.items())
+          + f"; K1 {k1}, K2 {k2} in all; K2 call shapes (B, M, N, d) {sorted(set(calls))}",
+          flush=True)
+    return state, stages, k1, k2, kept[-1], calls, seconds
+
+
+def phase_dtlz2(P, root) -> dict:
+    """One iteration of example_dtlz2_2048 --fast at the example's width
+    (2040 points padded to m = 2048, 3 fidelities, 4 objectives)."""
+    state, stages, k1, k2, jes, calls, seconds = run_example(
+        P, "dtlz2_2048", P.dtlz2_main,
+        ["--fast", "--iters", "1", "--n-init", "2040", "--log-dir", str(root)])
+    check(state.x.shape == (2041, 6) and state.fidelities[-1] in (0, 1, 2),
+          f"dtlz2_2048: state {state.x.shape}, fidelity {state.fidelities[-1]}")
+    check(all(np.isfinite(h) for h in state.hypervolumes), f"dtlz2_2048: HV {state.hypervolumes}")
+    check(stages["train"][0] >= 3 * 30, f"dtlz2_2048: K1 launches in train {stages['train']}")
+    check(stages["acq"][1] >= 1 and calls and all(c[1] == 2048 for c in calls),
+          f"dtlz2_2048: K2 calls {calls}")
+    phases = np.loadtxt(root / "phase_seconds.txt", ndmin=2)[0]
+    print(f"[dtlz2_2048] phase_seconds row {phases.tolist()} (it, n, setup, train, pareto, "
+          f"cond, acq, recommend)", flush=True)
+    rule = k2_on_path(P, "dtlz2_2048", jes, 6)
+    b, m, n, d = calls[0]
+    timing = time_k2_shape(P, "dtlz2_2048", b, m, n, d)
+    return dict(k1=k1, k2=k2, stages=stages, seconds=seconds, rule=rule, k2_shape=calls[0],
+                k2_timing=timing)
+
+
+def phase_batch10d(P, root) -> dict:
+    """One iteration of example_batch_bo_10d --fast (q = 16, d = 10)."""
+    q = 16
+    state, stages, k1, k2, jes, calls, seconds = run_example(
+        P, "batch10d", P.batch10d_main, ["--fast", "--iters", "1", "--log-dir", str(root)])
+    x = state.x[40:]
+    check(x.shape == (q, 10) and bool(((x >= 0) & (x <= 1)).all()),
+          f"batch10d: the batch {x.shape}")
+    check(len(set(state.fidelities[40:].tolist())) == 1, "batch10d: the batch spans fidelities")
+    batch = stages.get("batch", [0, 0])
+    print(f"[batch10d] the penalized picks launched K1 {batch[0]}, K2 {batch[1]} "
+          f"({2 * (q - 1)} K2 predicted: 2 per pick)", flush=True)
+    check(batch[1] == 2 * (q - 1), f"batch10d: {batch[1]} K2 launches in {q - 1} picks")
+    rule = k2_on_path(P, "batch10d", jes, 10)
+    b, m, n, d = calls[0]
+    timing = time_k2_shape(P, "batch10d", b, m, n, d)
+    return dict(k1=k1, k2=k2, stages=stages, seconds=seconds, rule=rule, k2_shape=calls[0],
+                k2_timing=timing)
+
+
 def card_name_and_power_limit() -> str:
     try:
         smi = subprocess.run(
@@ -865,10 +1172,15 @@ def main() -> int:
         from mobocmf_tpu_torch.linalg.ops import ladder_jitter
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.profile_k2 import k2_split, yardstick_us
-        from mobocmf_tpu_torch.profiling import device_ms, k2_problem, loop_ms
+        from mobocmf_tpu_torch.profiling import device_ms, k2_problem, loop_ms, patched
         from mobocmf_tpu_torch.sampling import rff
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+        from mobocmf_tpu_torch.acquisition.mesmoc import MESMOC_MFGP
+        from mobocmf_tpu_torch.examples import example_mesmoc_mfgp
+        from mobocmf_tpu_torch.examples.example_batch_bo_10d import main as batch10d_main
+        from mobocmf_tpu_torch.examples.example_dtlz2_2048 import main as dtlz2_main
+        from mobocmf_tpu_torch.models import mfgp
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repo ({exc})", file=sys.stderr)
         return 2
@@ -894,24 +1206,42 @@ def main() -> int:
                             recommendation_model_pass=recommendation_model_pass,
                             k2_problem=k2_problem, k2_split=k2_split,
                             yardstick_us=yardstick_us, loop=loop, BOConfig=loop.BOConfig,
-                            rff=rff, MAX_TRIES_FOR_FEASIBLE_GRID=MAX_TRIES_FOR_FEASIBLE_GRID)
-        k1 = phase_k1(P)
-        k2 = phase_k2(P)
-        phase_reference(P)
+                            rff=rff, MAX_TRIES_FOR_FEASIBLE_GRID=MAX_TRIES_FOR_FEASIBLE_GRID,
+                            MESMOC_MFGP=MESMOC_MFGP, mesmoc_example=example_mesmoc_mfgp,
+                            mfgp=mfgp, dtlz2_main=dtlz2_main, batch10d_main=batch10d_main,
+                            patched=patched)
+        phase_seconds = {}
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            phase_seconds[name] = time.perf_counter() - t
+            print(f"[phase] {name}: {phase_seconds[name]:.1f} s", flush=True)
+            return out
+
+        k1 = timed("k1", phase_k1, P)
+        k2 = timed("k2", phase_k2, P)
+        timed("reference", phase_reference, P)
 
         bc512 = [
             ("branin", (S.branin_scaled_low, S.branin_scaled), False),
             ("currin", (S.currin_low, S.currin), False),
             ("disk", (S.disk_constraint, S.disk_constraint), True),
         ]
-        run_a = run_slice(P, "bc512", bc512, 490, 100, COND_ITERS)
+        run_a = timed("bc512", run_slice, P, "bc512", bc512, 490, 100, COND_ITERS)
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
-        run_b = run_slice(P, "b128", bench128, 120, 50, COND_ITERS)
+        run_b = timed("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS)
         P.loop_blackboxes = bench_blackboxes(torch.device("cuda"))
         with tempfile.TemporaryDirectory() as tmp:
-            run_loop_a = phase_loop(P, Path(tmp))
-        time_k1(P, k1)
+            run_loop_a = timed("loop", phase_loop, P, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            run_mes = timed("mesmoc", phase_mesmoc, P, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            run_dtlz2 = timed("dtlz2_2048", phase_dtlz2, P, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            run_b10 = timed("batch10d", phase_batch10d, P, Path(tmp))
+        timed("k1 timings", time_k1, P, k1)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -925,6 +1255,9 @@ def main() -> int:
               f"stages: Pareto {r['t_pareto']:.3f} s, conditioned "
               f"{r['cond_iters'] / r['t_cond']:.2f} steps/s, acquisition {r['t_acq']:.3f} s, "
               f"recommendation {r['t_rec']:.3f} s", flush=True)
+    rounded = {k: round(v, 1) for k, v in phase_seconds.items()}
+    print(f"[summary] phase seconds {json.dumps(rounded)}", flush=True)
+    small = k1[("f32-noladder", 1, 32)]
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -935,7 +1268,10 @@ def main() -> int:
             "launches": run_a["k1_train"] + run_a["k1_slice"],
             "launches_by_path": {"bc512": run_a["k1_train"] + run_a["k1_slice"],
                                  "b128": run_b["k1_train"] + run_b["k1_slice"],
-                                 "loop": run_loop_a["k1"]},
+                                 "loop": run_loop_a["k1"], "mesmoc": run_mes["k1"],
+                                 "dtlz2_2048": run_dtlz2["k1"], "batch10d": run_b10["k1"]},
+            "at_mesmoc_shape": {key: small[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": k1_rec["max_abs_err"],
             "ms": k1_rec["ms"],
             "plain_ms": k1_rec["plain_ms"],
@@ -951,7 +1287,10 @@ def main() -> int:
             "launches": run_a["k2_acq"] + run_a["k2_rec"],
             "launches_by_path": {"bc512": run_a["k2_acq"] + run_a["k2_rec"],
                                  "b128": run_b["k2_acq"] + run_b["k2_rec"],
-                                 "loop": run_loop_a["k2"]},
+                                 "loop": run_loop_a["k2"], "mesmoc": run_mes["k2"],
+                                 "dtlz2_2048": run_dtlz2["k2"], "batch10d": run_b10["k2"]},
+            "at_path_shapes": {name: dict(shape=r["k2_shape"], **r["k2_timing"])
+                               for name, r in (("dtlz2_2048", run_dtlz2), ("batch10d", run_b10))},
             "max_abs_err": k2_rec["max_abs_err"],
             "ms": k2_rec["ms"],
             "plain_ms": k2_rec["plain_ms"],

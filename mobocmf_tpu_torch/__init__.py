@@ -11,11 +11,13 @@ through `BlackBoxMFDGPFitter`, RFF Pareto sampling (MOOP, SLSQP or device
 polish), conditioned training, the JESMOC all-fidelity candidate search
 (`JESMOC_MFDGP`) with q > 1 batches, the random baseline, and the BO loop
 (`bo/loop.py::run_bo_loop`: log files and resume, recommendation scoring,
-checkpoints, warm start), with two hand-written CUDA kernels: the blocked
+checkpoints, warm start), the exact-GP models and MESMOC
+(`models/mfgp.py`, `models/mfgp_lin.py`, `models/exact_gp.py`,
+`acquisition/mesmoc.py`), with two hand-written CUDA kernels: the blocked
 Cholesky (K1, `linalg/chol.py`, `csrc/chol.cu`) and the fused RBF-SVGP
 predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`). Entry
 scripts: `python -m mobocmf_tpu_torch.examples.toy_synthetic_2D_JESMOCMF`
-and `python -m mobocmf_tpu_torch.bench`.
+and the other `examples/` modules, and `python -m mobocmf_tpu_torch.bench`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU and no device named they raise (core/device.py).

@@ -6,6 +6,8 @@ escalating-jitter ladder runs inside the kernel; in float64 it is one plain
 factorization at the caller's jitter (the reference's 2e-6). Its backward
 is evaluated on the final finite factor only (`chol_pullback`), as a
 torch.autograd.Function, so failed attempts never enter autograd.
+`cholesky` is the exact-GP models' factor: K1 with no jitter and no
+ladder, through the same Function.
 
 Convention: JAX's solve_triangular(l.T, b, lower=False) is
 torch.linalg.solve_triangular(l.mT, b, upper=True) here.
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from mobocmf_tpu_torch.linalg.chol import cholesky
+from mobocmf_tpu_torch.linalg.chol import cholesky as k1_cholesky
 
 
 def add_jitter(k: torch.Tensor, jitter: float) -> torch.Tensor:
@@ -36,7 +38,7 @@ def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, jitter, ladder):
-        l, level = cholesky(k, jitter, ladder=ladder)
+        l, level = k1_cholesky(k, jitter, ladder=ladder)
         ctx.save_for_backward(l)
         ctx.mark_non_differentiable(level)
         return l, level
@@ -62,6 +64,13 @@ def safe_cholesky_level(k: torch.Tensor, jitter):
     `ladder_jitter` rebuilds the jitter a rung stands for).
     `jitter` is a float or a per-matrix tensor."""
     return _SafeCholesky.apply(k.contiguous(), jitter, k.dtype != torch.float64)
+
+
+def cholesky(k: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of k as it is: no jitter, no ladder (the JAX
+    package's linalg.ops.cholesky). A matrix that fails to factorize gives
+    NaN, and nothing raises. Differentiable through `chol_pullback`."""
+    return _SafeCholesky.apply(k.contiguous(), None, False)[0]
 
 
 def safe_cholesky(k: torch.Tensor, jitter) -> torch.Tensor:

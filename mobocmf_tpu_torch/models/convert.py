@@ -9,6 +9,9 @@ becomes a B = 1 port model; a stacked one (raw_noises (B, F)) keeps its B.
 `model_to_numpy` is the inverse: the blackbox dim is dropped when B = 1.
 `fitter_from_numpy` carries a whole fitter across: its training data, both
 stacks of models, the thresholds and the Pareto solution.
+`mfgp_from_numpy`, `mfgp_lin_from_numpy` and `exact_gp_from_numpy` build
+the exact-GP models from params laid out like the JAX package's (kernel
+dict, raw_noise) and their data.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import numpy as np
 import torch
 
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
+from mobocmf_tpu_torch.models import exact_gp as EG
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.models import mfgp as G
+from mobocmf_tpu_torch.models import mfgp_lin as GL
 from mobocmf_tpu_torch.models.svgp import SVGPVariational
 from mobocmf_tpu_torch.util.tree import tree_map
 
@@ -131,3 +137,40 @@ def fitter_from_numpy(
             t(pset), t(pfront), t(mask, torch.bool), int(num_valid)
         )
     return fitter
+
+
+def _tensors(tree, device: DeviceLike, dtype: torch.dtype):
+    device = resolve_device(device)
+    return tree_map(
+        lambda a: torch.as_tensor(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype),
+        tree)
+
+
+def mfgp_from_numpy(params, x_train, y_train, num_fidelities: int, jitter: float,
+                    row_penalty=None, device: DeviceLike = None,
+                    dtype: torch.dtype = torch.float32):
+    """An MFGPModel from (kernel, raw_noise) and the data, as numpy."""
+    kernel, raw_noise, x, y, pen = _tensors(
+        (dict(params[0]), params[1], x_train, y_train, row_penalty), device, dtype)
+    return G.MFGPModel(params=G.MFGPParams(kernel=kernel, raw_noise=raw_noise), x_train=x,
+                       y_train=y.reshape(-1), num_fidelities=num_fidelities,
+                       input_dim=x.shape[1] - 1, jitter=float(jitter), row_penalty=pen)
+
+
+def mfgp_lin_from_numpy(params, x_train, y_train, num_fidelities: int, jitter: float,
+                        device: DeviceLike = None, dtype: torch.dtype = torch.float32):
+    """An MFGPLinModel from (kernel, raw_noise) and the data, as numpy."""
+    kernel, raw_noise, x, y = _tensors((dict(params[0]), params[1], x_train, y_train),
+                                       device, dtype)
+    return GL.MFGPLinModel(params=GL.MFGPLinParams(kernel=kernel, raw_noise=raw_noise),
+                           x_train=x, y_train=y.reshape(-1), num_fidelities=num_fidelities,
+                           input_dim=x.shape[1] - 1, jitter=float(jitter))
+
+
+def exact_gp_from_numpy(params, x_train, y_train, jitter: float, device: DeviceLike = None,
+                        dtype: torch.dtype = torch.float32):
+    """An ExactGPModel from (kernel, raw_noise) and the data, as numpy."""
+    kernel, raw_noise, x, y = _tensors((dict(params[0]), params[1], x_train, y_train),
+                                       device, dtype)
+    return EG.ExactGPModel(params=EG.ExactGPParams(kernel=kernel, raw_noise=raw_noise),
+                           x_train=x, y_train=y.reshape(-1), jitter=float(jitter))

@@ -30,17 +30,9 @@ import time
 import numpy as np
 import torch
 
+from mobocmf_tpu_torch.profiling import patched
+
 SEED = 7
-
-
-@contextlib.contextmanager
-def patched(owner, name: str, value):
-    old = getattr(owner, name)
-    setattr(owner, name, value)
-    try:
-        yield
-    finally:
-        setattr(owner, name, old)
 
 
 class Stages:
@@ -111,13 +103,13 @@ def factor_errors(fitter, kernel) -> list:
     names = [(n, False) for n in fitter.obj_names] + [(n, True) for n in fitter.con_names]
     model = trainer.stack_models([fitter.get_model(n, c) for n, c in names])
     seen = []
-    real = ops.cholesky
+    real = ops.k1_cholesky
 
     def spy(k, jitter=None, ladder=False):
         seen.append((k.detach().clone(), jitter))
         return real(k, jitter, ladder)
 
-    with patched(ops, "cholesky", spy), torch.no_grad():
+    with patched(ops, "k1_cholesky", spy), torch.no_grad():
         M.compute_layer_states(model.params, model.consts, model.config)
     rows = []
     for k, jitter in seen:

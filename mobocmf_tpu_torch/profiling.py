@@ -1,6 +1,9 @@
-"""Timing helpers shared by chip_smoke.py and the kernels' profiling scripts
-(profile_chol.py, profile_k2.py), and K2's test problem. Need a CUDA device
-to time; `missing_events` is plain Python.
+"""Timing helpers shared by chip_smoke.py and the profiling scripts
+(profile_chol.py, profile_k2.py, profile_pareto.py), K2's test problem, and
+`patched`, which swaps a module attribute for the length of a with block.
+Need a CUDA device to time; `missing_events` and `patched` are plain
+Python. A pipeline's phase accounting and traces are another module:
+mobocmf_tpu_torch/util/profiling.py.
 
 Device times come from torch.profiler, which can drop events (on an H100
 it dropped the first kernel of a cycle, in some sessions after another
@@ -12,6 +15,7 @@ refused (RuntimeError), never summed from what arrived.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from collections import Counter
@@ -23,6 +27,16 @@ import torch
 TRIES = 5
 # torch.cuda._sleep's kernel, launched first in every round, never counted
 SENTINEL = "spin_kernel"
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
 
 
 def k2_problem(batch, m, n, d, seed, dtype, dev):

@@ -339,3 +339,66 @@ def test_device_polish_on_card_matches_cpu_f64(cuda_device):
     assert (out[0] is None) == (out[1] is None)
     if out[0] is not None:
         np.testing.assert_allclose(out[1], out[0], rtol=1e-7, atol=1e-9)
+
+
+# -- the exact-GP family's path: K1 at n = 32 without the ladder -------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ladder", [False, True])
+@pytest.mark.parametrize("batch,n", [(1, 32), (3, 32), (1, 24), (3, 40)])
+def test_kernel_small_n_matches_plain(cuda_device, dtype, ladder, batch, n):
+    a = _spd(batch, n, 100 + n, dtype, cuda_device)
+    jit = torch.full((batch,), 1e-6, dtype=dtype, device=cuda_device)
+    chol.reset_counts()
+    got, level = chol.cholesky(a, jitter=jit, ladder=ladder)
+    assert chol.launches == 1
+    want, want_level = chol.cholesky_plain(a, jit, ladder)
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel < (1e-5 if dtype == torch.float32 else 1e-12), rel
+    assert torch.equal(level, want_level)
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+
+
+def test_no_ladder_cholesky_gradient_f64(cuda_device):
+    """ops.cholesky (K1 forward, chol_pullback backward) passes gradcheck on
+    the card at f64, and its gradient equals torch.linalg.cholesky's."""
+    k = _spd(1, 32, 7, torch.float64, cuda_device)[0]
+
+    def sym_chol(m):
+        return ops.cholesky(0.5 * (m + m.mT))
+
+    kk = k.clone().requires_grad_(True)
+    assert torch.autograd.gradcheck(sym_chol, (kk,), eps=1e-6, atol=1e-7)
+    w = torch.linspace(0.0, 1.0, 32, dtype=torch.float64, device=cuda_device)
+    (g,) = torch.autograd.grad(torch.sum(torch.sin(sym_chol(kk)) * w), kk)
+    k2 = k.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        torch.sum(torch.sin(torch.linalg.cholesky(0.5 * (k2 + k2.mT))) * w), k2)
+    torch.testing.assert_close(g, want, rtol=1e-10, atol=1e-12)
+
+
+def test_mfgp_fit_on_card_matches_cpu(cuda_device):
+    from mobocmf_tpu_torch.models import mfgp as G
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(28, 2))
+    fid = (np.arange(28) % 2).astype(float)
+    xf = np.concatenate([x, fid[:, None]], axis=1)
+    xf = np.concatenate([xf, np.full((4, 3), 0.5)])
+    xf[28:, 2] = 0.0
+    y = np.concatenate([np.sin(3 * x[:, 0]) + 0.5 * x[:, 1], np.zeros(4)])
+    valid = np.arange(32) < 28
+    xs = torch.as_tensor(rng.uniform(size=(9, 2)))
+    out = []
+    for dev in ("cpu", cuda_device):
+        chol.reset_counts()
+        m = G.fit_mfgp(G.init_mfgp(xf, y, 2, row_valid=valid, device=dev, dtype=torch.float64),
+                       num_iters=20)
+        if dev != "cpu":
+            assert chol.launches == 20
+        mean, var = G.predict(m, xs.to(dev), 1)
+        out.append([t.cpu() for t in (m.params.raw_noise, mean, var)])
+    for a, b in zip(out[1], out[0]):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12)

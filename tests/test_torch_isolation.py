@@ -28,11 +28,23 @@ from mobocmf_tpu_torch.models.convert import model_from_numpy
 from mobocmf_tpu_torch.sampling.rff import sample_prior
 from mobocmf_tpu_torch.test_functions.prior_problem import sample_problem
 from mobocmf_tpu_torch.util.checkpoint import restore_fitter
+from mobocmf_tpu_torch.acquisition.mesmoc import MESMOC_MFGP
+from mobocmf_tpu_torch.examples.example_batch_bo_10d import main as batch10d_main
+from mobocmf_tpu_torch.examples.example_branin_currin_512 import main as bc512_main
+from mobocmf_tpu_torch.examples.example_dtlz2_2048 import main as dtlz2_main
+from mobocmf_tpu_torch.examples.example_mesmoc_mfgp import main as mesmoc_main
+from mobocmf_tpu_torch.models.exact_gp import init_exact_gp
+from mobocmf_tpu_torch.models.mfgp import init_mfgp
+from mobocmf_tpu_torch.models.mfgp_lin import init_mfgp_lin
+from mobocmf_tpu_torch.util.util import preprocess_outputs
 
 walked = {m.name for m in pkgutil.walk_packages(mobocmf_tpu_torch.__path__, "mobocmf_tpu_torch.")}
 for name in ("bench", "bo.loop", "acquisition.batch", "acquisition.random_choice",
              "util.hypervolume", "util.heartbeat", "util.checkpoint", "util.describe",
-             "examples.toy_synthetic_2D_JESMOCMF"):
+             "examples.toy_synthetic_2D_JESMOCMF", "kernels.mf_exact", "models.exact_gp",
+             "models.mfgp", "models.mfgp_lin", "acquisition.mesmoc", "util.util",
+             "util.profiling", "examples.example_mesmoc_mfgp", "examples.example_branin_currin_512",
+             "examples.example_batch_bo_10d", "examples.example_dtlz2_2048"):
     assert "mobocmf_tpu_torch." + name in walked, name
 
 leaked = sorted(m for m in sys.modules
@@ -57,6 +69,15 @@ calls = [
     lambda: restore_fitter("missing"),
     lambda: bench_bo_iteration(fast=True),
     lambda: toy_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
+    lambda: mesmoc_main(["--iters", "0"]),
+    lambda: bc512_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
+    lambda: batch10d_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
+    lambda: dtlz2_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
+    lambda: MESMOC_MFGP({}, {}, 2, 2, {}, {}),
+    lambda: init_mfgp(np.c_[x, fid], x[:, 0], 2),
+    lambda: init_mfgp_lin(np.c_[x, fid], x[:, 0], 2),
+    lambda: init_exact_gp(x, x[:, 0]),
+    lambda: preprocess_outputs(x[:, 0]),
 ]
 for call in calls:
     try:
