@@ -26,6 +26,11 @@
 4. checks the f64 CUDA path against the port's CPU path (which the CPU
    tests hold against the JAX package) on a small problem, and the K2
    route of the acquisition predictive against the plain route at f64;
+   then the phases replayed from CUDA graphs (mobocmf_tpu_torch/fit/
+   graphs.py) against the CPU's eager steps from the same draws at f64: a
+   full-batch, a minibatch and a conditioned phase cut into chunks of 2
+   steps (two chunk boundaries and a remainder) and an exact-GP adam_fit,
+   with K1's launches equal to one eager step's times the steps;
 5. drives the main path through the entry points a user calls: the
    Branin-Currin-512 configuration (3 blackboxes, 490 points padded to the
    512 bucket, so m = 512 inducing points per layer) through
@@ -66,8 +71,14 @@
    pick checked), holds K2 on each search's own screening states to the
    plain route's accuracy (as for bc512), and times K2 at the shape the
    path gave it against its plain version, with its plan;
-9. prints each phase's seconds, the kernel line and, last,
-   {"ok": true, "device": {...}}.
+9. runs the two examples that checkpoint or pickle the fitter between its
+   phases (example_synthetic_2D, example_acquisition_mfdgp_forrester
+   --fast): the round trips on the card keep every prediction, K2 runs on
+   their acquisition surfaces, and K1 / K2 launches per stage equal the
+   counts predicted (PIPELINE_STAGES);
+10. prints, for every path, its captured phases' steps per second with the
+   capture seconds and replays, each phase's seconds, the kernel line and,
+   last, {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -96,6 +107,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
 COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
+# chunk size of the captured reference phases (5 steps: 2 + 2 + 1)
+REFERENCE_CHUNK = 2
 # K2 on the main path's f32 states against the plain route, from the H100
 # readings in PERF.md: at layer 0 K2 was 0.12x (bc512) and 0.24x (b128) as
 # far off the f64 answer as the plain route, so it may be no further off;
@@ -395,6 +408,185 @@ def phase_reference(P) -> None:
           f"{rel:.3e}, K2 launches {k2_calls}", flush=True)
     check(k2_calls == 1, f"the no-grad predictive launched K2 {k2_calls} times, not once")
     check(rel < 1e-9, f"the K2 route differs from the plain route by {rel:.3e}")
+    captured_reference(P)
+
+
+def rel_diff(got, want) -> float:
+    """The largest |difference| of each pair, relative to the CPU tensor's
+    largest entry, maximized over the pairs."""
+    return max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+               for a, b in zip(got, want))
+
+
+def reference_case(P, label, run, one_step, steps, replays) -> None:
+    """One captured-path case: `run(dev)` -> (tensors, stats) on the CPU
+    (eager) and on the card (from a CUDA graph), stats["k1"] the K1
+    launches of the phase alone; `one_step()` is one eager step on the
+    card. Holds the card to the CPU at rel < 1e-8 and K1's launches to one
+    eager step's x the steps (f64: no ladder escalation)."""
+    chol = P.chol
+    chol.reset_counts()
+    per_step = one_step()[1]["k1"]
+    want, _ = run("cpu")
+    chol.reset_counts()
+    got, stats = run("cuda")
+    launched, escalated = stats["k1"], chol.escalations()
+    rel = rel_diff(got, want)
+    print(f"[reference] captured {label}: {steps} steps in {stats.get('chunks', 1)} chunk(s), "
+          f"{stats['replays']} replays, capture {stats['capture_seconds']:.3f} s; card vs CPU "
+          f"max rel diff {rel:.3e}; K1 launches {launched} = {per_step} per eager step x "
+          f"{steps}; escalations {escalated}", flush=True)
+    check(rel < 1e-8, f"captured {label}: the card differs from the CPU by {rel:.3e}")
+    check(launched == per_step * steps and per_step > 0,
+          f"captured {label}: K1 launched {launched} times, {per_step} per eager step")
+    check(escalated == 0, f"captured {label}: {escalated} ladder escalations at f64")
+    check(stats["replays"] == replays, f"captured {label}: {stats['replays']} replays")
+
+
+def captured_reference(P) -> None:
+    """The captured path at f64 against the CPU's eager path from the same
+    draws: a full-batch phase, a minibatch phase and a conditioned phase,
+    each cut into chunks of REFERENCE_CHUNK steps (5 steps: 2 + 2 + 1, so
+    two chunk boundaries and a remainder), and an exact-GP adam_fit (one
+    chunk, as the JAX package's one scan)."""
+    trainer, C, M, f64 = P.trainer, P.conditioned, P.M, torch.float64
+    rng = np.random.default_rng(2)
+    n, steps = 48, 5
+    x = rng.uniform(size=(n, 2))
+    fid = np.arange(n) % 2
+    ys = np.stack([np.sin(5 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0]])
+    g = torch.Generator().manual_seed(3)
+    t = lambda a, dev, **kw: torch.as_tensor(a, device=dev, **kw)  # noqa: E731
+
+    xq = x[:9] + 0.01
+
+    def launched():
+        torch.cuda.synchronize()
+        return P.chol.launches
+
+    def predictive(params, model, dev):
+        """The trained models' acquisition predictive (plain route), the
+        quantities the f64 check above compares: Adam moves some entries
+        from ~0, where it scales the devices' ~1e-13 gradient differences
+        by lr / eps, so raw parameters are not compared."""
+        return list(M.predict_for_acquisition_all(params, model.consts, model.config,
+                                                  t(xq, dev)))
+
+    def model_on(dev):
+        return trainer.stack_models([
+            M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i), device=dev,
+                         dtype=f64) for i, y in enumerate(ys)])
+
+    with P.patched(trainer, "chunk_size_for", lambda m: REFERENCE_CHUNK):
+        for label, bsz in (("full-batch phase", n), ("minibatch phase", 16)):
+            nb = -(-n // bsz)
+            eps = torch.randn((steps, 2, 1, bsz * nb), generator=g, dtype=f64)
+            perms = torch.argsort(torch.rand((steps, 2, n), generator=g), -1) if nb > 1 else None
+
+            def run(dev, count=steps):
+                stats = {}
+                args = (model_on(dev), t(x, dev), t(ys, dev), t(fid, dev), count, 0.003,
+                        "all_free", bsz)
+                draws = dict(eps=eps[:count].to(dev),
+                             perms=None if perms is None else perms[:count].to(dev))
+                params, logs = trainer.train_phase_stacked_chunked(*args, **draws, stats=stats)
+                stats["k1"] = launched()
+                return [logs.loss, logs.kl] + predictive(params, args[0], dev), stats
+
+            reference_case(P, label, run, lambda: run("cuda", 1), steps,
+                           steps - P.graphs.WARMUP)
+
+        pset, pfront = rng.uniform(size=(4, 2)), rng.normal(size=(4, 1))
+
+        def run_cond(dev, count=steps):
+            m = model_on(dev)
+            obj, con = (P.trainer.select_model(m, i) for i in (0, 1))
+            data = C.ConditionedData(
+                x=t(x, dev), ys_obj=t(ys[:1], dev), ys_con=t(ys[1:], dev), fidelities=t(fid, dev),
+                pareto_set=t(pset, dev), pareto_front=t(pfront, dev),
+                front_mask=t([True, True, True, False], dev), thresholds=t([0.1], dev, dtype=f64))
+            chunk = C.draw_chunk(torch.Generator().manual_seed(4), data._replace(
+                x=data.x.cpu(), pareto_set=data.pareto_set.cpu()), obj.config, 24, count)
+            draws = [C.StepDraws(*(None if a is None else a[i].to(dev) for a in chunk))
+                     for i in range(count)]
+            stats = {}
+            op, cp, losses = C.train_conditioned_chunked(
+                obj.params, con.params, obj.consts, con.consts, obj.config, data, None, count,
+                0.01, 1e-8, 24, draws=draws, stats=stats)
+            stats["k1"] = launched()
+            return [losses] + predictive(op, obj, dev) + predictive(cp, con, dev), stats
+
+        reference_case(P, "conditioned phase (minibatch of 24)", run_cond,
+                       lambda: run_cond("cuda", 1), steps, steps - P.graphs.WARMUP)
+
+    E = P.exact_gp
+    fit_steps = 20
+
+    def run_fit(dev, count=fit_steps):
+        with StepsLog(P) as log:
+            model = E.fit_exact_gp(E.init_exact_gp(x, ys[0], device=dev, dtype=f64),
+                                   num_iters=count)
+        # the log keeps the card's runners only: the CPU run has no record
+        stats = dict(log.records[-1] if log.records else {}, k1=launched())
+        return P.tree_leaves(model.params) + list(E.predict(model, t(xq, dev))), stats
+
+    reference_case(P, "adam_fit (exact GP NLML, one chunk)", run_fit,
+                   lambda: run_fit("cuda", 1), fit_steps, fit_steps - P.graphs.WARMUP)
+
+
+class StepsLog:
+    """Every graphs.Steps runner on the card closed inside the block: its
+    steps, graph replays, capture seconds, and the seconds its run() calls
+    took (each call synchronized on both ends)."""
+
+    def __init__(self, P):
+        self.P, self.records, self.saved = P, [], []
+
+    def __enter__(self):
+        steps_cls = self.P.graphs.Steps
+        run, close, records = steps_cls.run, steps_cls.close, self.records
+
+        def timed_run(steps, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(steps, n)
+            torch.cuda.synchronize()
+            steps.run_seconds = getattr(steps, "run_seconds", 0.0) + time.perf_counter() - t0
+
+        def recorded_close(steps):
+            if steps.device.type == "cuda":
+                records.append(dict(steps=steps.steps, replays=steps.replays,
+                                    capture_seconds=steps.capture_seconds,
+                                    seconds=getattr(steps, "run_seconds", 0.0)))
+            close(steps)
+
+        self.saved = [("run", run), ("close", close)]
+        steps_cls.run, steps_cls.close = timed_run, recorded_close
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(self.P.graphs.Steps, name, fn)
+        return False
+
+
+def steps_summary(label, records) -> dict:
+    """Steps per second of a path's captured phases (each phase's steps over
+    its run time less its capture), with the capture seconds and replays."""
+    for i, r in enumerate(records):
+        rate = r["steps"] / max(r["seconds"] - r["capture_seconds"], 1e-9)
+        print(f"[steps] {label} phase {i}: {r['steps']} steps in {r['seconds']:.3f} s "
+              f"(capture {r['capture_seconds']:.3f} s, {r['replays']} replays): "
+              f"{rate:.2f} steps/s without the capture", flush=True)
+    total = dict(steps=sum(r["steps"] for r in records),
+                 seconds=sum(r["seconds"] for r in records),
+                 capture_seconds=sum(r["capture_seconds"] for r in records),
+                 replays=sum(r["replays"] for r in records), phases=len(records))
+    total["steps_per_s"] = total["steps"] / max(total["seconds"] - total["capture_seconds"], 1e-9)
+    print(f"[steps] {label}: {total['phases']} captured phases, {total['steps']} steps, "
+          f"{total['replays']} replays, capture {total['capture_seconds']:.3f} s, "
+          f"{total['steps_per_s']:.2f} steps/s without the capture", flush=True)
+    return total
 
 
 def staged(P, fn):
@@ -507,7 +699,8 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
         steps += st["epochs"]
         print(
             f"[{label}] phase {st['phase']}: {st['epochs']} steps in {st['seconds']:.3f} s = "
-            f"{st['epochs'] / st['seconds']:.2f} steps/s; neg-ELBO first {st['first']:.6g} "
+            f"{st['epochs'] / st['seconds']:.2f} steps/s (capture {st['capture_seconds']:.3f} s, "
+            f"{st['replays']} replays); neg-ELBO first {st['first']:.6g} "
             f"last {st['last']:.6g}; K1 launches {st['chol_launches']}; "
             f"ladder escalations {st['escalations']} "
             f"({st['escalations'] / max(st['chol_launches'], 1):.3f} per launch)",
@@ -533,7 +726,8 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     print(f"[{label}] Pareto sampling: {t_pareto:.3f} s ({fitter.pareto_tries} MOOP attempt(s), "
           f"{sol.num_valid} valid Pareto points of {sol.pareto_set.shape[0]})", flush=True)
     print(f"[{label}] conditioned training: {cond_iters} steps in {cond['seconds']:.3f} s = "
-          f"{cond_iters / cond['seconds']:.2f} steps/s; loss first {cond['first']:.6g} last "
+          f"{cond_iters / cond['seconds']:.2f} steps/s (capture {cond['capture_seconds']:.3f} s, "
+          f"{cond['replays']} replays); loss first {cond['first']:.6g} last "
           f"{cond['last']:.6g}; K1 launches {cond['chol_launches']}; ladder escalations "
           f"{cond['escalations']} ({cond['escalations'] / max(cond['chol_launches'], 1):.3f} per "
           "launch)", flush=True)
@@ -673,6 +867,8 @@ class StageCounts:
             ("acq", P.JESMOC_MFDGP, "get_nextpoint_coupled"),
             ("batch", P.JESMOC_MFDGP, "get_batch_coupled"),
             ("recommend", P.loop, "recommend_and_score"),
+            ("surfaces", P.JESMOC_MFDGP, "decoupled_acq"),
+            ("surfaces", P.JESMOC_MFDGP, "coupled_acq"),
         ]
         self.records, self.current, self.saved = [], {}, []
 
@@ -1097,7 +1293,42 @@ def run_example(P, label, main, argv):
           + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in stages.items())
           + f"; K1 {k1}, K2 {k2} in all; K2 call shapes (B, M, N, d) {sorted(set(calls))}",
           flush=True)
-    return state, stages, k1, k2, kept[-1], calls, seconds
+    return state, stages, k1, k2, kept[-1] if kept else None, calls, seconds
+
+
+# K1 / K2 launches per stage of the two pipeline examples, counted from
+# the code's structure (2 fidelities: one K1 launch per layer for every
+# stacked model; layer 0 of a no-grad predictive through one K2 call):
+# train 2 per epoch; cond 2 per step; surfaces 2 K1 + 1 K2 per predictive
+# (a decoupled gain takes two, the coupled gain of a fidelity one); the
+# round trips' predictions 2 K1 + 1 K2 per model, outside the stages.
+PIPELINE_STAGES = {
+    # 10 + 20 epochs, 10 conditioned steps, 8 decoupled + 2 coupled surfaces
+    "synthetic2d": {"train": [60, 0], "cond": [20, 0], "surfaces": [36, 18]},
+    # --fast: 10 + 20 epochs, 10 conditioned steps, 2 decoupled surfaces
+    "forrester": {"train": [60, 0], "cond": [20, 0], "surfaces": [8, 4]},
+}
+
+
+def phase_pipeline(P, label, main, argv, gaps) -> dict:
+    """One of the two examples that checkpoint or pickle the fitter between
+    its phases: the round trips on the card keep every prediction (the
+    example raises otherwise, and returns each gap), K2 runs on the
+    acquisition surfaces, and the deterministic stages launch what
+    PIPELINE_STAGES predicts."""
+    state, stages, k1, k2, _, calls, seconds = run_example(P, label, main, argv)
+    for gap in gaps:
+        check(state[gap] == 0.0, f"{label}: {gap} = {state[gap]}")
+    print(f"[{label}] round trips {', '.join(f'{g} {state[g]}' for g in gaps)}; pareto points "
+          f"{state['pareto_points']} (MOOP attempts {state['pareto_tries']}); conditioned loss "
+          f"{state['cond_loss']:.6g}; acquisition maxima {state['acq_max']}", flush=True)
+    check(np.isfinite(state["cond_loss"]), f"{label}: conditioned loss {state['cond_loss']}")
+    check(all(np.isfinite(v) and v >= 0 for v in state["acq_max"].values()),
+          f"{label}: acquisition maxima {state['acq_max']}")
+    for stage, want in PIPELINE_STAGES[label].items():
+        check(stages.get(stage) == want, f"{label}: {stage} launched K1 / K2 "
+              f"{stages.get(stage)}, predicted {want}")
+    return dict(k1=k1, k2=k2, stages=stages, seconds=seconds)
 
 
 def phase_dtlz2(P, root) -> dict:
@@ -1181,6 +1412,11 @@ def main() -> int:
         from mobocmf_tpu_torch.examples.example_batch_bo_10d import main as batch10d_main
         from mobocmf_tpu_torch.examples.example_dtlz2_2048 import main as dtlz2_main
         from mobocmf_tpu_torch.models import mfgp
+        from mobocmf_tpu_torch.fit import conditioned, graphs
+        from mobocmf_tpu_torch.models import exact_gp
+        from mobocmf_tpu_torch.examples.example_synthetic_2D import main as synthetic2d_main
+        from mobocmf_tpu_torch.examples.example_acquisition_mfdgp_forrester import (
+            main as forrester_main)
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repo ({exc})", file=sys.stderr)
         return 2
@@ -1209,7 +1445,8 @@ def main() -> int:
                             rff=rff, MAX_TRIES_FOR_FEASIBLE_GRID=MAX_TRIES_FOR_FEASIBLE_GRID,
                             MESMOC_MFGP=MESMOC_MFGP, mesmoc_example=example_mesmoc_mfgp,
                             mfgp=mfgp, dtlz2_main=dtlz2_main, batch10d_main=batch10d_main,
-                            patched=patched)
+                            patched=patched, conditioned=conditioned, graphs=graphs,
+                            exact_gp=exact_gp)
         phase_seconds = {}
 
         def timed(name, fn, *args):
@@ -1222,25 +1459,37 @@ def main() -> int:
         k1 = timed("k1", phase_k1, P)
         k2 = timed("k2", phase_k2, P)
         timed("reference", phase_reference, P)
+        steps = {}
+
+        def stepped(name, fn, *args):
+            """A path with its captured phases' steps per second."""
+            with StepsLog(P) as log:
+                out = timed(name, fn, *args)
+            steps[name] = steps_summary(name, log.records)
+            return out
 
         bc512 = [
             ("branin", (S.branin_scaled_low, S.branin_scaled), False),
             ("currin", (S.currin_low, S.currin), False),
             ("disk", (S.disk_constraint, S.disk_constraint), True),
         ]
-        run_a = timed("bc512", run_slice, P, "bc512", bc512, 490, 100, COND_ITERS)
+        run_a = stepped("bc512", run_slice, P, "bc512", bc512, 490, 100, COND_ITERS)
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
-        run_b = timed("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS)
+        run_b = stepped("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS)
         P.loop_blackboxes = bench_blackboxes(torch.device("cuda"))
         with tempfile.TemporaryDirectory() as tmp:
-            run_loop_a = timed("loop", phase_loop, P, Path(tmp))
+            run_loop_a = stepped("loop", phase_loop, P, Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
-            run_mes = timed("mesmoc", phase_mesmoc, P, Path(tmp))
+            run_mes = stepped("mesmoc", phase_mesmoc, P, Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
-            run_dtlz2 = timed("dtlz2_2048", phase_dtlz2, P, Path(tmp))
+            run_dtlz2 = stepped("dtlz2_2048", phase_dtlz2, P, Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
-            run_b10 = timed("batch10d", phase_batch10d, P, Path(tmp))
+            run_b10 = stepped("batch10d", phase_batch10d, P, Path(tmp))
+        run_s2d = stepped("synthetic2d", phase_pipeline, P, "synthetic2d", synthetic2d_main, [],
+                          ["gap_uncond", "gap_cond"])
+        run_forr = stepped("forrester", phase_pipeline, P, "forrester", forrester_main,
+                           ["--fast"], ["gap_fitter", "gap_jes"])
         timed("k1 timings", time_k1, P, k1)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -1255,6 +1504,9 @@ def main() -> int:
               f"stages: Pareto {r['t_pareto']:.3f} s, conditioned "
               f"{r['cond_iters'] / r['t_cond']:.2f} steps/s, acquisition {r['t_acq']:.3f} s, "
               f"recommendation {r['t_rec']:.3f} s", flush=True)
+    print("[summary] captured phases, steps/s without the capture: " + ", ".join(
+        f"{name} {st['steps_per_s']:.2f} ({st['phases']} phases, {st['replays']} replays, "
+        f"capture {st['capture_seconds']:.3f} s)" for name, st in steps.items()), flush=True)
     rounded = {k: round(v, 1) for k, v in phase_seconds.items()}
     print(f"[summary] phase seconds {json.dumps(rounded)}", flush=True)
     small = k1[("f32-noladder", 1, 32)]
@@ -1269,7 +1521,8 @@ def main() -> int:
             "launches_by_path": {"bc512": run_a["k1_train"] + run_a["k1_slice"],
                                  "b128": run_b["k1_train"] + run_b["k1_slice"],
                                  "loop": run_loop_a["k1"], "mesmoc": run_mes["k1"],
-                                 "dtlz2_2048": run_dtlz2["k1"], "batch10d": run_b10["k1"]},
+                                 "dtlz2_2048": run_dtlz2["k1"], "batch10d": run_b10["k1"],
+                                 "synthetic2d": run_s2d["k1"], "forrester": run_forr["k1"]},
             "at_mesmoc_shape": {key: small[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": k1_rec["max_abs_err"],
@@ -1288,7 +1541,8 @@ def main() -> int:
             "launches_by_path": {"bc512": run_a["k2_acq"] + run_a["k2_rec"],
                                  "b128": run_b["k2_acq"] + run_b["k2_rec"],
                                  "loop": run_loop_a["k2"], "mesmoc": run_mes["k2"],
-                                 "dtlz2_2048": run_dtlz2["k2"], "batch10d": run_b10["k2"]},
+                                 "dtlz2_2048": run_dtlz2["k2"], "batch10d": run_b10["k2"],
+                                 "synthetic2d": run_s2d["k2"], "forrester": run_forr["k2"]},
             "at_path_shapes": {name: dict(shape=r["k2_shape"], **r["k2_timing"])
                                for name, r in (("dtlz2_2048", run_dtlz2), ("batch10d", run_b10))},
             "max_abs_err": k2_rec["max_abs_err"],

@@ -22,8 +22,10 @@ constraint models are stacked on one blackbox dim, their inducing chains
 factored once per step (one K1 launch per layer for all of them), and one
 forward evaluates the rows [batch; X*; x_tilde]. Padded Pareto rows are
 masked out of the sums. Per step the randomness is the minibatch (when it
-is smaller than the data), x_tilde and the propagation normals; all come
-from a torch.Generator or are injected (`StepDraws`).
+is smaller than the data), x_tilde and the propagation normals; they come
+from a torch.Generator, drawn a chunk of steps at a time before the chunk
+runs, or are injected (`StepDraws`). The phase runs in bounded chunks as
+the unconditioned phases do (fit/trainer.py, fit/graphs.py).
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from mobocmf_tpu_torch.fit import trainer
+from mobocmf_tpu_torch.fit import graphs, trainer
 from mobocmf_tpu_torch.mlls.elbo import _data_term, gaussian_expected_log_prob
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 NUM_OMEGA_POINTS = 10  # reference :277
@@ -48,6 +51,16 @@ def loss_theta_factors(cs_mean, cs_var, threshold, eps: float, mask) -> torch.Te
     cdf = torch.special.ndtr(gamma)
     per_point = math.log(1.0 - eps) * cdf + math.log(eps) * (1.0 - cdf)
     return torch.sum(torch.where(mask, per_point, torch.zeros_like(per_point)), dim=-1)
+
+
+def _prod(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.prod over `dim` as a chain of products: prod's backward counts
+    the zeros on the host, which a step captured into a CUDA graph cannot."""
+    shape = t.shape[:dim] + t.shape[dim + 1:]
+    out = torch.ones(shape, dtype=t.dtype, device=t.device)
+    for part in t.unbind(dim):
+        out = out * part
+    return out
 
 
 def loss_omega_factors(
@@ -63,8 +76,8 @@ def loss_omega_factors(
     """Reference :235-243, masked over padded Pareto rows."""
     gamma_c = (cs_mean - thresholds[:, None]) / torch.sqrt(cs_var)  # (C, J)
     gamma_f = (pareto_front[:, :, None] - fs_mean[None]) / torch.sqrt(fs_var[None])  # (P, K, J)
-    prob_feas = torch.prod(torch.special.ndtr(gamma_c), dim=0)  # (J,)
-    prob_dom = torch.prod(torch.special.ndtr(gamma_f), dim=1)  # (P, J)
+    prob_feas = _prod(torch.special.ndtr(gamma_c), dim=0)  # (J,)
+    prob_dom = _prod(torch.special.ndtr(gamma_f), dim=1)  # (P, J)
     q = prob_feas[None, :] * prob_dom
     per = math.log(eps) * q + math.log(1.0 - eps) * (1.0 - q)
     return torch.sum(torch.where(front_mask[:, None], per, torch.zeros_like(per)))
@@ -177,24 +190,111 @@ def conditioned_loss(
     return _loss_stacked(params, consts, config, data, eps_const, batch_idx, batch_w, x_tilde, eps)
 
 
-def draw_step(
+def draw_chunk(
     generator: Optional[torch.Generator],
     data: ConditionedData,
     config: M.MFDGPConfig,
     batch_size: int,
+    steps: int,
 ) -> StepDraws:
+    """The draws of `steps` steps at once, each field with a leading step
+    dim: minibatch rows (steps, b) (the first b of an argsort of f64
+    uniforms; None when the batch is the whole data), x_tilde (steps, 10,
+    d), normals (steps, O+C, F-1, b+P+10)."""
     n, d = data.x.shape
     bsz = min(batch_size, n)
     dtype, device = data.x.dtype, data.x.device
     bidx = None
     if bsz < n:
-        bidx = torch.randperm(n, generator=generator, device=device)[:bsz]
-    x_tilde = torch.rand((NUM_OMEGA_POINTS, d), generator=generator, dtype=dtype, device=device)
+        keys = torch.rand((steps, n), generator=generator, dtype=torch.float64, device=device)
+        bidx = torch.argsort(keys, dim=-1)[:, :bsz]
+    x_tilde = torch.rand((steps, NUM_OMEGA_POINTS, d), generator=generator, dtype=dtype,
+                         device=device)
     num_models = data.ys_obj.shape[0] + data.ys_con.shape[0]
     rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
-    eps = torch.randn((num_models, max(config.num_fidelities - 1, 0), rows),
+    eps = torch.randn((steps, num_models, max(config.num_fidelities - 1, 0), rows),
                       generator=generator, dtype=dtype, device=device)
     return StepDraws(batch_idx=bidx, x_tilde=x_tilde, eps=eps)
+
+
+def _stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
+    """Per-step draws (the caller's) as one chunk."""
+    bidx = None if draws[0].batch_idx is None else torch.stack([d.batch_idx for d in draws])
+    return StepDraws(bidx, torch.stack([d.x_tilde for d in draws]),
+                     torch.stack([d.eps for d in draws]))
+
+
+class ConditionedPhase:
+    """One conditioned phase: the stacked objective + constraint parameters,
+    Adam, the buffers of a chunk of at most `chunk` steps, and the step that
+    graphs.Steps runs. `run_chunk(draws)` runs as many steps as the chunk's
+    draws have rows and returns their losses."""
+
+    def __init__(self, obj_params, con_params, obj_consts, con_consts, config, data,
+                 lr: float, eps_const: float, batch_size: int, chunk: int = 1,
+                 opt_state: Optional[dict] = None):
+        self.num_obj = data.ys_obj.shape[0]
+        self.config, self.data, self.eps_const = config, data, eps_const
+        n, d = data.x.shape
+        dev, dtype = data.x.device, data.x.dtype
+        all_p, self.consts = _stack(obj_params, con_params, obj_consts, con_consts)
+        self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), all_p)
+        self.leaves = tree_leaves(self.params)
+        self.masks = tree_leaves(trainer.MASK_BUILDERS["fix_cond"](self.params))
+        self.opt = graphs.adam(self.leaves, lr, opt_state)
+        rw = data.row_weights
+        self.rw = torch.ones((n,), dtype=dtype, device=dev) if rw is None else rw
+        self.full = torch.arange(n, device=dev)
+
+        bsz = min(batch_size, n)
+        nm = self.num_obj + data.ys_con.shape[0]
+        rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
+        self.index = graphs.StepIndex(dev)
+        self.bidx_buf = (None if bsz == n else
+                         torch.zeros((chunk, bsz), dtype=torch.int64, device=dev))
+        self.xt_buf = torch.zeros((chunk, NUM_OMEGA_POINTS, d), dtype=dtype, device=dev)
+        self.eps_buf = torch.zeros((chunk, nm, max(config.num_fidelities - 1, 0), rows),
+                                   dtype=dtype, device=dev)
+        self.loss_buf = torch.zeros((chunk,), dtype=dtype, device=dev)
+        self.steps = graphs.Steps(self._step, dev, self.leaves)
+
+    def _step(self) -> None:
+        ix = self.index
+        bidx = self.full if self.bidx_buf is None else ix.take(self.bidx_buf)
+        self.opt.zero_grad(set_to_none=True)
+        loss = _loss_stacked(self.params, self.consts, self.config, self.data, self.eps_const,
+                             bidx, self.rw[bidx], ix.take(self.xt_buf), ix.take(self.eps_buf))
+        loss.backward()
+        for p, m in zip(self.leaves, self.masks):
+            if p.grad is not None and m != 1.0:
+                p.grad.mul_(m)
+        self.opt.step()
+        ix.put(self.loss_buf, 0, loss)
+        ix.advance()
+
+    def run_chunk(self, draws: StepDraws) -> torch.Tensor:
+        steps = draws.x_tilde.shape[0]
+        if self.bidx_buf is not None:
+            self.bidx_buf[:steps].copy_(draws.batch_idx)
+        self.xt_buf[:steps].copy_(draws.x_tilde)
+        self.eps_buf[:steps].copy_(draws.eps)
+        self.index.reset()
+        self.steps.run(steps)
+        return self.loss_buf[:steps].clone()
+
+    def result(self) -> Tuple[M.MFDGPParams, M.MFDGPParams]:
+        params = tree_map(lambda t: t.detach(), self.params)
+        return (tree_map(lambda t: t[: self.num_obj], params),
+                tree_map(lambda t: t[self.num_obj:], params))
+
+    def close(self) -> None:
+        self.steps.close()
+
+
+def _chunk_draws(generator, phase: ConditionedPhase, batch_size, start, count, draws):
+    if draws is None:
+        return draw_chunk(generator, phase.data, phase.config, batch_size, count)
+    return _stack_draws(draws[start:start + count])
 
 
 def train_conditioned_carry(
@@ -212,47 +312,25 @@ def train_conditioned_carry(
     opt_state: Optional[dict] = None,
     draws: Optional[Sequence[StepDraws]] = None,
 ):
-    """Joint conditioned Adam steps with an explicit optimizer-state carry:
-    opt_state None starts fresh, passing it back continues. Returns
-    (obj_params, con_params, opt_state, losses (num_iters,)).
+    """Joint conditioned Adam steps as one chunk with an explicit
+    optimizer-state carry: opt_state None starts fresh, passing it back
+    continues. Returns (obj_params, con_params, opt_state, losses
+    (num_iters,)).
 
     Every model sees the same per-step minibatch (identical to the
     reference when batch_size >= N, the examples' default). draws: one
     StepDraws per step (default: drawn from `generator`)."""
-    num_obj = data.ys_obj.shape[0]
-    n = data.x.shape[0]
-    all_p, all_c = _stack(obj_params, con_params, obj_consts, con_consts)
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), all_p)
-    leaves = tree_leaves(params)
-    masks = tree_leaves(trainer.MASK_BUILDERS["fix_cond"](params))
-    opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
-    if opt_state is not None:
-        opt.load_state_dict(opt_state)
-    rw = data.row_weights
-    if rw is None:
-        rw = torch.ones((n,), dtype=data.x.dtype, device=data.x.device)
-    full = torch.arange(n, device=data.x.device)
-
-    losses = []
-    for it in range(num_iters):
-        dr = draws[it] if draws is not None else draw_step(generator, data, config, batch_size)
-        bidx = full if dr.batch_idx is None else dr.batch_idx
-        opt.zero_grad(set_to_none=True)
-        loss = _loss_stacked(
-            params, all_c, config, data, eps_const, bidx, rw[bidx], dr.x_tilde, dr.eps
-        )
-        loss.backward()
-        for p, m in zip(leaves, masks):
-            if p.grad is not None and m != 1.0:
-                p.grad.mul_(m)
-        opt.step()
-        losses.append(loss.detach())
-
-    params = tree_map(lambda t: t.detach(), params)
-    op = tree_map(lambda t: t[:num_obj], params)
-    cp = tree_map(lambda t: t[num_obj:], params)
-    empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
-    return op, cp, opt.state_dict(), torch.stack(losses) if losses else empty
+    phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
+                             eps_const, batch_size, max(num_iters, 1), opt_state)
+    try:
+        losses = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
+        if num_iters:
+            losses = phase.run_chunk(_chunk_draws(generator, phase, batch_size, 0, num_iters,
+                                                  draws))
+        op, cp = phase.result()
+        return op, cp, phase.opt.state_dict(), losses
+    finally:
+        phase.close()
 
 
 def train_conditioned(
@@ -260,7 +338,7 @@ def train_conditioned(
     num_iters: int, lr: float, eps_const: float, batch_size: int,
     draws: Optional[Sequence[StepDraws]] = None,
 ):
-    """A fresh conditioned phase: (obj_params, con_params, losses)."""
+    """A fresh conditioned phase as one chunk: (obj_params, con_params, losses)."""
     op, cp, _, losses = train_conditioned_carry(
         obj_params, con_params, obj_consts, con_consts, config, data, generator,
         num_iters, lr, eps_const, batch_size, draws=draws,
@@ -286,16 +364,34 @@ def _check_shared_inducing(obj_consts: M.MFDGPConsts, con_consts: Optional[M.MFD
 def train_conditioned_chunked(
     obj_params, con_params, obj_consts, con_consts, config, data, generator,
     num_iters: int, lr: float, eps_const: float, batch_size: int,
+    draws: Optional[Sequence[StepDraws]] = None,
+    stats: Optional[dict] = None,
 ) -> Tuple[M.MFDGPParams, M.MFDGPParams, torch.Tensor]:
-    """The fitter's entry point: checks the shared inducing inputs, then
-    runs the phase. The JAX package cuts it into bounded device programs
-    with the Adam state carried across; eager PyTorch has no program to
-    bound, so the phase runs as one carry."""
+    """The fitter's entry point: checks the shared inducing inputs, then runs
+    the phase as bounded chunks (trainer.chunk_sizes at the padded row
+    count) with the Adam state carried across them and heartbeat
+    `cond:chunk{ci}` after each. Each chunk's draws are made before it runs
+    (or taken from `draws`, one StepDraws per step of the phase). `stats`,
+    when given, receives the chunks, capture seconds, replays and steps."""
     _check_shared_inducing(obj_consts, con_consts)
-    return train_conditioned(
-        obj_params, con_params, obj_consts, con_consts, config, data, generator,
-        num_iters, lr, eps_const, batch_size,
-    )
+    sizes = trainer.chunk_sizes(num_iters, data.x.shape[0])
+    phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
+                             eps_const, batch_size, max(sizes, default=1))
+    try:
+        losses, start = [], 0
+        for ci, size in enumerate(sizes):
+            losses.append(phase.run_chunk(_chunk_draws(generator, phase, batch_size, start, size,
+                                                       draws)))
+            start += size
+            heartbeat.beat(f"cond:chunk{ci}")
+        if stats is not None:
+            stats.update(chunks=len(sizes), capture_seconds=phase.steps.capture_seconds,
+                         replays=phase.steps.replays, steps=phase.steps.steps)
+        op, cp = phase.result()
+        empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
+        return op, cp, torch.cat(losses) if losses else empty
+    finally:
+        phase.close()
 
 
 def empty_like_stack(params: M.MFDGPParams, consts: M.MFDGPConsts) -> Tuple[M.MFDGPParams, M.MFDGPConsts]:

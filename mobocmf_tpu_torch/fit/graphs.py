@@ -1,0 +1,161 @@
+"""Optimizer steps replayed from one CUDA graph: the port's counterpart of
+the JAX package's `jax.jit` + `lax.scan` over a phase
+(mobocmf_tpu/fit/trainer.py::train_phase_carry, fit/conditioned.py::
+train_conditioned_carry, models/exact_gp.py::_fit_exact_gp_run).
+
+A phase's step is a closure with no arguments. What changes from one step
+to the next (the random draws) it reads from buffers allocated once for
+the phase, at the position of a one-element device tensor (`StepIndex`);
+it writes its loss into the phase's log buffers at that position and then
+advances the position. Nothing random is drawn inside a step: the caller
+fills the buffers for a chunk of steps before the chunk runs.
+
+`Steps.run(n)` runs n steps. On a CUDA device its first call runs WARMUP
+steps eagerly on a side stream (the first one builds and loads K1 and
+allocates the optimizer's state), then captures one step with
+torch.cuda.graph, and replays the graph for the rest; later calls only
+replay. On the CPU the same steps run eagerly. Either way the chunking,
+the draws and the logs are the caller's one code path; only how a step is
+issued differs. A capture or a replay that fails raises: there is no
+eager path on the card to fall back to.
+
+Kernel counters: K1's wrapper called while its stream is capturing adds
+to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
+launches of every replay to `launches`. (K2 runs only without gradients,
+never inside a captured step.) `close()` frees the graph and its memory
+pool at the end of the phase.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from mobocmf_tpu_torch.linalg import chol
+
+# eager steps before the capture: the first builds and loads K1, allocates
+# the Adam state and the cuBLAS workspace; the second runs on warm caches
+WARMUP = 2
+
+
+def adam(leaves: Iterable[torch.Tensor], lr: float,
+         state: Optional[dict] = None) -> torch.optim.Adam:
+    """torch.optim.Adam set as optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8),
+    continuing from `state` (a state_dict) when given. On the card it is
+    capturable: the step count and the bias corrections stay on the device,
+    so a graph can replay the update. torch keeps a capturable step count in
+    float32, which puts the bias corrections ~1e-8 off at f64; here it has
+    the parameters' dtype, as the eager path's host arithmetic."""
+    leaves = list(leaves)
+    cuda = leaves[0].is_cuda
+    opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8, capturable=cuda)
+    if state is not None:
+        opt.load_state_dict(copy.deepcopy(state))
+    if cuda:
+        for p in leaves:
+            st = opt.state[p]
+            if st:
+                st["step"] = st["step"].to(p.dtype)
+            else:
+                st.update(step=torch.zeros((), dtype=p.dtype, device=p.device),
+                          exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+    return opt
+
+
+class StepIndex:
+    """The position of the current step in a chunk's buffers: a one-element
+    int64 tensor on the device, read and advanced inside the step."""
+
+    def __init__(self, device: torch.device):
+        self.t = torch.zeros((1,), dtype=torch.int64, device=device)
+
+    def take(self, buf: torch.Tensor) -> torch.Tensor:
+        """buf[position] (a copy, indexed on the device)."""
+        return buf.index_select(0, self.t)[0]
+
+    def put(self, buf: torch.Tensor, dim: int, value: torch.Tensor) -> None:
+        """buf[..., position, ...] = value along `dim`, in place."""
+        buf.index_copy_(dim, self.t, value.detach().unsqueeze(dim))
+
+    def advance(self) -> None:
+        self.t.add_(1)
+
+    def reset(self) -> None:
+        self.t.zero_()
+
+
+class Steps:
+    """Runs a step closure n times per `run(n)`: eagerly on the CPU, from
+    one captured CUDA graph on the card. `capture_seconds` is the time the
+    capture took (with its synchronizations), `replays` the graph's
+    replays, `steps` every step run."""
+
+    def __init__(self, step: Callable[[], None], device: torch.device,
+                 leaves: Optional[Iterable[torch.Tensor]] = None):
+        self.step = step
+        self.device = torch.device(device)
+        self.leaves = list(leaves or ())
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_seconds = 0.0
+        self.replays = 0
+        self.steps = 0
+        self._warm = 0
+        self._k1_per_replay = 0
+
+    def run(self, n: int) -> None:
+        if n <= 0:
+            return
+        self.steps += n
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self.step()
+            return
+        done = 0
+        if self.graph is None:
+            done = min(WARMUP - self._warm, n)
+            if done:
+                self._warm_up(done)
+            if done == n:
+                return
+            self._capture()
+        for _ in range(n - done):
+            self.graph.replay()
+        self.replays += n - done
+        chol.launches += self._k1_per_replay * (n - done)
+
+    def _warm_up(self, n: int) -> None:
+        self._warm += n
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(n):
+                self.step()
+        current.wait_stream(side)
+
+    def _capture(self) -> None:
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        before = chol.captured
+        graph = torch.cuda.CUDAGraph()
+        # the step's first backward allocates its gradients from the graph's
+        # pool (PyTorch's whole-network capture)
+        for p in self.leaves:
+            p.grad = None
+        with torch.cuda.device(self.device), torch.cuda.graph(graph):
+            self.step()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+        self._k1_per_replay = chol.captured - before
+        self.graph = graph
+
+    def close(self) -> None:
+        """Free the graph and its memory pool (the gradients it allocated)."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+        for p in self.leaves:
+            p.grad = None

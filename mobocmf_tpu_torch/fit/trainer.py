@@ -5,17 +5,25 @@
   Cholesky frozen; means + kernel params train), num_epochs_1 @ lr_1;
 - phase 2: everything free, num_epochs_2 @ lr_2.
 
-A phase is one Python loop of Adam steps (eps 1e-8, a fresh state per
-phase) on the stacked model: the loss is the sum of the blackboxes'
-negative ELBOs, so each blackbox gets its own gradient, as under the JAX
-package's vmap. Freezing multiplies `.grad` by a 0/1 mask before `step()`.
+A phase is a run of Adam steps (eps 1e-8, a fresh state per phase) on the
+stacked model: the loss is the sum of the blackboxes' negative ELBOs, so
+each blackbox gets its own gradient, as under the JAX package's vmap.
+Freezing multiplies `.grad` by a 0/1 mask before `step()`.
+
+As in the JAX package, a phase runs in bounded chunks of epochs
+(`chunk_size_for`, keyed on the padded row count) with the Adam state
+carried across them and a heartbeat after each. The chunk's random numbers
+are drawn at once before it runs, and on the card the chunk replays one
+captured epoch from a CUDA graph (fit/graphs.py); the parameters are
+checked for finiteness at every chunk end.
 
 A full-batch epoch takes no permutation (the shuffle would only re-pair
 eps draws with rows). The minibatch path follows DataLoader(shuffle=True,
 drop_last=False): a fresh permutation per epoch and blackbox, the trailing
-partial batch padded and masked with zero weights. The per-step eps (and
-permutations) come from a torch.Generator, or precomputed from the caller
-(the parity tests inject the JAX key chain's draws).
+partial batch padded and masked with zero weights. The eps (and
+permutations) come from a torch.Generator, a chunk at a time, or from the
+caller for the whole phase (the parity tests inject the JAX key chain's
+draws).
 """
 
 from __future__ import annotations
@@ -25,8 +33,10 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from mobocmf_tpu_torch.fit import graphs
 from mobocmf_tpu_torch.mlls.elbo import elbo_terms
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
@@ -146,7 +156,152 @@ def _batch_plan(num_data: int, batch_size: int) -> Tuple[int, int]:
     return batch_size, math.ceil(num_data / batch_size)
 
 
-def train_phase_stacked(
+# Chunk schedule, a copy of the JAX package's (mobocmf_tpu/fit/trainer.py):
+# chunk sizes keyed on the padded row count = inducing count, so the plan is
+# deterministic given the shapes (chunk boundaries set when draws are made).
+_CHUNK_LADDER = ((256, 5000), (768, 1000), (1536, 250), (3072, 50))
+_CHUNK_MIN = 25
+
+
+def chunk_size_for(m: int) -> int:
+    for cap, c in _CHUNK_LADDER:
+        if m <= cap:
+            return c
+    return _CHUNK_MIN
+
+
+def chunk_sizes(total: int, m: int) -> List[int]:
+    """The chunks of a `total`-step phase at m rows: full chunks, then the
+    remainder (read through this module, so a test can patch chunk_size_for)."""
+    c = chunk_size_for(m)
+    return [c] * (total // c) + ([total % c] if total % c else [])
+
+
+def draw_chunk(generator, config: M.MFDGPConfig, epochs: int, num_models: int, n: int,
+               batch_size: int, dtype, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One chunk's draws: eps (E, B, F-1, n) full batch or (E, B, F-1,
+    num_batches*batch) minibatch, and the minibatch permutations (E, B, n)
+    (argsort of f64 uniforms, one per epoch and blackbox), else None."""
+    bsz, num_batches = _batch_plan(n, batch_size)
+    if num_batches == 1:
+        return M.sample_eps(generator, config, n, dtype, device, (epochs, num_models)), None
+    perms = torch.argsort(torch.rand((epochs, num_models, n), generator=generator,
+                                     dtype=torch.float64, device=device), dim=-1)
+    eps = M.sample_eps(generator, config, bsz * num_batches, dtype, device, (epochs, num_models))
+    return eps, perms
+
+
+class TrainPhase:
+    """One phase on the stacked model: its parameters, Adam, the buffers of
+    a chunk of at most `chunk` epochs, and the epoch step that
+    graphs.Steps runs (one full-batch step, or one epoch of minibatch
+    steps). `run_chunk(eps, perms)` runs as many epochs as eps has rows."""
+
+    def __init__(self, model: M.MFDGPModel, x, ys, fidelities, lr: float, mask_kind: str,
+                 batch_size: int, row_weights=None, num_data=None, chunk: int = 1,
+                 opt_state: Optional[dict] = None):
+        self.consts, self.config = model.consts, model.config
+        self.x, self.ys, self.fid = x, ys, fidelities.reshape(-1)
+        n = x.shape[0]
+        self.num_models = ys.shape[0]
+        self.bsz, self.num_batches = _batch_plan(n, batch_size)
+        padded = self.bsz * self.num_batches
+        nf = max(self.config.num_fidelities - 1, 0)
+        if row_weights is None:
+            row_weights = torch.ones((n,), dtype=x.dtype, device=x.device)
+        self.row_weights = row_weights
+        self.nd = torch.sum(row_weights) if num_data is None else num_data
+
+        self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), model.params)
+        self.leaves = tree_leaves(self.params)
+        self.masks = tree_leaves(build_mask(self.params, mask_kind, self.config))
+        self.opt = graphs.adam(self.leaves, lr, opt_state)
+
+        dev, nb = x.device, self.num_models
+        self.index = graphs.StepIndex(dev)
+        rows = n if self.num_batches == 1 else padded
+        self.eps_buf = torch.zeros((chunk, nb, nf, rows), dtype=x.dtype, device=dev)
+        self.perm_buf = (None if self.num_batches == 1 else
+                         torch.zeros((chunk, nb, n), dtype=torch.int64, device=dev))
+        self.loss_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
+        self.kl_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
+        self.steps = graphs.Steps(self._epoch, dev, self.leaves)
+
+    def _update(self, xb, yb, fb, wb, eb):
+        self.opt.zero_grad(set_to_none=True)
+        elbo, kl = elbo_terms(self.params, self.consts, self.config, xb, yb, fb, eb, self.nd,
+                              weights=wb)
+        loss = -elbo
+        torch.sum(loss).backward()
+        for p, m in zip(self.leaves, self.masks):
+            if p.grad is not None and m != 1.0:
+                p.grad.mul_(m)
+        self.opt.step()
+        return loss.detach(), kl.detach()
+
+    def _epoch(self) -> None:
+        x, ix = self.x, self.index
+        eps = ix.take(self.eps_buf)
+        if self.num_batches == 1:
+            loss, kl = self._update(x, self.ys, self.fid, self.row_weights, eps)
+        else:
+            nb, n, bsz = self.num_models, x.shape[0], self.bsz
+            perm = ix.take(self.perm_buf)
+            pad = bsz * self.num_batches - n
+            idx = torch.cat([perm, perm.new_zeros((nb, pad))], dim=1).reshape(nb, -1, bsz)
+            w_all = torch.cat([self.row_weights[perm], x.new_zeros((nb, pad))], dim=1)
+            w_all = w_all.reshape(nb, -1, bsz)
+            e_all = eps.reshape(nb, eps.shape[1], self.num_batches, bsz)
+            loss = kl = 0.0
+            for i in range(self.num_batches):
+                bidx = idx[:, i]
+                lb, kb = self._update(x[bidx], torch.gather(self.ys, 1, bidx), self.fid[bidx],
+                                      w_all[:, i], e_all[:, :, i])
+                loss, kl = loss + lb, kl + kb
+        ix.put(self.loss_buf, 1, loss)
+        ix.put(self.kl_buf, 1, kl)
+        ix.advance()
+
+    def run_chunk(self, eps: torch.Tensor, perms: Optional[torch.Tensor]) -> EpochLog:
+        e = eps.shape[0]
+        self.eps_buf[:e].copy_(eps)
+        if self.perm_buf is not None:
+            self.perm_buf[:e].copy_(perms)
+        self.index.reset()
+        self.steps.run(e)
+        return EpochLog(loss=self.loss_buf[:, :e].clone(), kl=self.kl_buf[:, :e].clone())
+
+    def check_finite(self, where: str) -> None:
+        finite = torch.stack([torch.isfinite(t).all() for t in self.leaves]).all()
+        if not bool(finite):
+            raise RuntimeError(
+                f"{where}: unconditioned training produced non-finite parameters "
+                "(f32 numerical escape; check safe_cholesky escalation and output scaling)"
+            )
+
+    def result(self) -> M.MFDGPParams:
+        return tree_map(lambda t: t.detach(), self.params)
+
+    def close(self) -> None:
+        self.steps.close()
+
+
+def _phase_draws(generator, phase: TrainPhase, start, count, eps, perms):
+    """Draws of epochs [start, start + count): slices of the caller's
+    (eps, perms) where given, else a fresh chunk from `generator`."""
+    if eps is None:
+        x = phase.x
+        return draw_chunk(generator, phase.config, count, phase.num_models, x.shape[0],
+                          phase.bsz, x.dtype, x.device)
+    return eps[start:start + count], None if perms is None else perms[start:start + count]
+
+
+def _empty_log(nb: int, like: torch.Tensor) -> EpochLog:
+    empty = torch.zeros((nb, 0), dtype=like.dtype, device=like.device)
+    return EpochLog(loss=empty, kl=empty)
+
+
+def train_phase_stacked_carry(
     model: M.MFDGPModel,
     x: torch.Tensor,
     ys: torch.Tensor,
@@ -160,8 +315,11 @@ def train_phase_stacked(
     generator: Optional[torch.Generator] = None,
     eps: Optional[torch.Tensor] = None,
     perms: Optional[torch.Tensor] = None,
-) -> Tuple[M.MFDGPParams, EpochLog]:
-    """One phase of Adam on the stacked model; returns (params, logs).
+    opt_state: Optional[dict] = None,
+) -> Tuple[M.MFDGPParams, dict, EpochLog]:
+    """`num_epochs` epochs of Adam on the stacked model as one chunk, with an
+    explicit optimizer-state carry (opt_state None starts fresh); returns
+    (params, opt_state, logs), like the JAX package's train_phase_carry.
 
     x (N, d) shared; ys (B, N); fidelities (N,). row_weights (N,) marks real
     rows 1 / padded rows 0 and num_data is the REAL row count for the KL
@@ -170,71 +328,68 @@ def train_phase_stacked(
     (E, B, F-1, num_batches*batch) minibatch; perms: optional (E, B, N)
     minibatch permutations. What is not given is drawn from `generator`.
     """
-    config, consts = model.config, model.consts
-    n = x.shape[0]
-    nb_models = ys.shape[0]
-    bsz, num_batches = _batch_plan(n, batch_size)
-    padded = bsz * num_batches
-    nf = max(config.num_fidelities - 1, 0)
-    fid = fidelities.reshape(-1)
-    if row_weights is None:
-        row_weights = torch.ones((n,), dtype=x.dtype, device=x.device)
-    nd = torch.sum(row_weights) if num_data is None else num_data
+    phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
+                       num_data, max(num_epochs, 1), opt_state)
+    try:
+        log = _empty_log(ys.shape[0], x)
+        if num_epochs:
+            log = phase.run_chunk(*_phase_draws(generator, phase, 0, num_epochs, eps, perms))
+        return phase.result(), phase.opt.state_dict(), log
+    finally:
+        phase.close()
 
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), model.params)
-    leaves = tree_leaves(params)
-    masks = tree_leaves(build_mask(params, mask_kind, config))
-    opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
 
-    def step(xb, yb, fb, wb, eb):
-        opt.zero_grad(set_to_none=True)
-        elbo, kl = elbo_terms(params, consts, config, xb, yb, fb, eb, nd, weights=wb)
-        loss = -elbo
-        torch.sum(loss).backward()
-        for p, m in zip(leaves, masks):
-            if p.grad is not None and m != 1.0:
-                p.grad.mul_(m)
-        opt.step()
-        return loss.detach(), kl.detach()
+def train_phase_stacked(model, x, ys, fidelities, num_epochs: int, lr: float, mask_kind: str,
+                        batch_size: int, row_weights=None, num_data=None, generator=None,
+                        eps=None, perms=None) -> Tuple[M.MFDGPParams, EpochLog]:
+    """A fresh phase as one chunk: (params, logs)."""
+    params, _, logs = train_phase_stacked_carry(
+        model, x, ys, fidelities, num_epochs, lr, mask_kind, batch_size, row_weights, num_data,
+        generator, eps, perms,
+    )
+    return params, logs
 
-    losses, kls = [], []
-    for e in range(num_epochs):
-        if num_batches == 1:
-            eb = eps[e] if eps is not None else M.sample_eps(
-                generator, config, n, x.dtype, x.device, (nb_models,)
-            )
-            loss, kl = step(x, ys, fid, row_weights, eb)
-        else:
-            if perms is not None:
-                perm = perms[e]
-            else:
-                perm = torch.stack([
-                    torch.randperm(n, generator=generator, device=x.device)
-                    for _ in range(nb_models)
-                ])
-            pad_idx = torch.zeros((nb_models, padded - n), dtype=perm.dtype, device=x.device)
-            idx = torch.cat([perm, pad_idx], dim=1).reshape(nb_models, num_batches, bsz)
-            w_pad = torch.zeros((nb_models, padded - n), dtype=x.dtype, device=x.device)
-            w_all = torch.cat([row_weights[perm], w_pad], dim=1).reshape(
-                nb_models, num_batches, bsz
-            )
-            e_all = eps[e] if eps is not None else M.sample_eps(
-                generator, config, padded, x.dtype, x.device, (nb_models,)
-            )
-            e_all = e_all.reshape(nb_models, nf, num_batches, bsz)
-            loss = kl = 0.0
-            for i in range(num_batches):
-                bidx = idx[:, i]
-                lb, kb = step(
-                    x[bidx], torch.gather(ys, 1, bidx), fid[bidx], w_all[:, i], e_all[:, :, i]
-                )
-                loss, kl = loss + lb, kl + kb
-        losses.append(loss)
-        kls.append(kl)
 
-    params = tree_map(lambda t: t.detach(), params)
-    if not losses:
-        empty = torch.zeros((nb_models, 0), dtype=x.dtype, device=x.device)
-        return params, EpochLog(loss=empty, kl=empty)
-    return params, EpochLog(loss=torch.stack(losses, dim=1), kl=torch.stack(kls, dim=1))
-
+def train_phase_stacked_chunked(
+    model: M.MFDGPModel,
+    x: torch.Tensor,
+    ys: torch.Tensor,
+    fidelities: torch.Tensor,
+    num_epochs: int,
+    lr: float,
+    mask_kind: str,
+    batch_size: int,
+    row_weights: Optional[torch.Tensor] = None,
+    num_data=None,
+    generator: Optional[torch.Generator] = None,
+    eps: Optional[torch.Tensor] = None,
+    perms: Optional[torch.Tensor] = None,
+    stats: Optional[dict] = None,
+    label: str = "train",
+) -> Tuple[M.MFDGPParams, EpochLog]:
+    """A phase as bounded chunks (`chunk_sizes`) with the Adam state carried
+    across them (the fitter's entry point; arguments as
+    train_phase_stacked_carry, eps and perms for the whole phase). Each
+    chunk's draws are made before it runs; after it, heartbeat
+    `train:chunk{ci}`, then the parameters must be finite (RuntimeError
+    naming `label` otherwise). `stats`, when given, receives the chunks,
+    the capture seconds, the graph replays and the steps."""
+    sizes = chunk_sizes(num_epochs, x.shape[0])
+    phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
+                       num_data, max(sizes, default=1))
+    try:
+        logs, start = [], 0
+        for ci, size in enumerate(sizes):
+            logs.append(phase.run_chunk(*_phase_draws(generator, phase, start, size, eps, perms)))
+            start += size
+            heartbeat.beat(f"train:chunk{ci}")
+            phase.check_finite(f"[{label}] chunk {ci}")
+        if stats is not None:
+            stats.update(chunks=len(sizes), capture_seconds=phase.steps.capture_seconds,
+                         replays=phase.steps.replays, steps=phase.steps.steps)
+        if not logs:
+            return phase.result(), _empty_log(ys.shape[0], x)
+        return phase.result(), EpochLog(loss=torch.cat([l.loss for l in logs], dim=1),
+                                        kl=torch.cat([l.kl for l in logs], dim=1))
+    finally:
+        phase.close()

@@ -24,9 +24,13 @@ in 32x32 tiles fits, else the output buffer in L2) and the dynamic shared
 memory per block. It mirrors csrc/chol_factor.cuh::smem_bytes, which the
 launch checks; K2 (linalg/fused_svgp.py) factorizes under the same plan.
 
-Counters: `launches` counts kernel launches (CUDA path only);
-`escalations()` counts factorizations that climbed the ladder, summed on
-the device without a host read until asked.
+Counters: `launches` counts kernel launches that ran (CUDA path only). A
+launch made while the stream is being captured into a CUDA graph runs
+only when the graph is replayed, so it adds to `captured` instead, and
+the graph's owner (fit/graphs.py) adds the launches of every replay to
+`launches`. `escalations()` counts factorizations that climbed the
+ladder, summed on the device without a host read until asked, into one
+persistent tensor per device that a captured step adds into in place.
 """
 
 from __future__ import annotations
@@ -37,8 +41,12 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-# kernel launches of csrc/chol.cu since the last reset_counts()
+# kernel launches of csrc/chol.cu that ran since the last reset_counts(),
+# and launches recorded into CUDA graphs being captured (run at replay)
 launches = 0
+captured = 0
+# per device: factorizations that climbed the ladder (int64, one element;
+# zeroed in place by reset_counts, never replaced: graphs add into it)
 _escalated: Dict[torch.device, torch.Tensor] = {}
 
 _C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -99,9 +107,11 @@ def max_active_clusters(pl: Plan, dtype: torch.dtype) -> int:
 
 
 def reset_counts() -> None:
-    global launches
+    global launches, captured
     launches = 0
-    _escalated.clear()
+    captured = 0
+    for count in _escalated.values():
+        count.zero_()
 
 
 def escalations() -> int:
@@ -159,7 +169,7 @@ def _entry(dtype: torch.dtype):
 
 
 def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool, pl: Plan = None):
-    global launches
+    global launches, captured
     if not a.is_contiguous():
         raise ValueError("cholesky: the CUDA kernel takes a contiguous (B, n, n) tensor")
     pl = plan(a.shape[-1], a.dtype) if pl is None else pl
@@ -175,7 +185,10 @@ def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool, pl: Plan = None
         )
     if err != 0:
         raise launch_error("cholesky", err)
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out, level
 
 
@@ -204,7 +217,8 @@ def cholesky(
         raise ValueError(f"cholesky: unsupported device {a.device}")
     if ladder:
         count = _escalated.get(a.device)
-        stepped = torch.sum(level > 0)
-        _escalated[a.device] = stepped if count is None else count + stepped
+        if count is None:
+            count = _escalated[a.device] = torch.zeros((), dtype=torch.int64, device=a.device)
+        count.add_(torch.sum(level > 0))
     return (l[0], level[0]) if single else (l, level)
 

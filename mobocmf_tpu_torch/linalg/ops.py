@@ -38,7 +38,10 @@ def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, jitter, ladder):
-        l, level = k1_cholesky(k, jitter, ladder=ladder)
+        # (k + k^T) / 2 first, as jnp.linalg.cholesky symmetrizes its input:
+        # a Gram from the expansion trick is symmetric only to rounding, and
+        # the factor of an ill-conditioned Kzz amplifies that difference
+        l, level = k1_cholesky((k + k.mT) / 2, jitter, ladder=ladder)
         ctx.save_for_backward(l)
         ctx.mark_non_differentiable(level)
         return l, level

@@ -7,7 +7,8 @@ models/mfgp.py and models/mfgp_lin.py): torch.optim.Adam set as
 optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8), one step per iteration on the
 exact negative log marginal likelihood. Each step factors the N x N train
 Gram once through K1 (linalg/ops.py::cholesky, no jitter ladder) and
-differentiates it through `chol_pullback`.
+differentiates it through `chol_pullback`; on the card the steps replay
+one captured step (fit/graphs.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from mobocmf_tpu_torch.core.constraints import GreaterThan
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device, resolve_dtype
+from mobocmf_tpu_torch.fit import graphs
 from mobocmf_tpu_torch.kernels import rbf
 from mobocmf_tpu_torch.linalg.ops import add_jitter, cholesky, logdet_from_chol
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
@@ -41,13 +43,24 @@ class ExactGPModel(NamedTuple):
 
 def adam_fit(params, loss: Callable, num_iters: int, lr: float):
     """`num_iters` Adam steps on loss(params) from `params` (a tree of
-    tensors); returns the final params, detached."""
+    tensors); returns the final params, detached. The steps run as one
+    chunk through fit/graphs.py (the JAX package's one lax.scan): replayed
+    from a captured step on the card, eagerly on the CPU. The loss draws
+    nothing random."""
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
-    opt = torch.optim.Adam(tree_leaves(params), lr=lr, eps=1e-8)
-    for _ in range(num_iters):
+    leaves = tree_leaves(params)
+    opt = graphs.adam(leaves, lr)
+
+    def step():
         opt.zero_grad(set_to_none=True)
         loss(params).backward()
         opt.step()
+
+    steps = graphs.Steps(step, leaves[0].device, leaves)
+    try:
+        steps.run(num_iters)
+    finally:
+        steps.close()
     return tree_map(lambda t: t.detach(), params)
 
 

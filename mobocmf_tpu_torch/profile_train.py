@@ -3,12 +3,15 @@
     python -m mobocmf_tpu_torch.profile_train [--points 490] [--steps 20]
 
 Builds the Branin-Currin models of chip_smoke.py (490 points padded to
-m = 512, or --points 120 for m = 128, with a fourth blackbox), times
-full-batch two-phase training steps with CUDA events, then traces the same
-steps with torch.profiler and prints one JSON line: steps/s, device time
-per step and its share of the traced and of the untraced step, kernel
-launches per step, and the kernels that take the most device time. Needs a
-CUDA device.
+m = 512, or --points 120 for m = 128, with a fourth blackbox) and runs
+full-batch training steps as the fitter does: one phase
+(fit/trainer.py::TrainPhase) whose steps replay one captured CUDA graph
+(fit/graphs.py). A first chunk of --steps warms up and captures the step;
+a second is timed with CUDA-synchronised host clocks; a third is traced
+with torch.profiler. Prints one JSON line: steps/s, the capture's
+seconds, device time per step and its share of the traced and of the
+untraced step, kernel launches per step, and the kernels that take the
+most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,13 +63,16 @@ def main() -> None:
     fitter, model, ys = build_model(args.points)
     num_data = torch.tensor(float(fitter.num_real), device="cuda")
 
-    def run(steps):
-        return trainer.train_phase_stacked(
-            model, fitter.x_train, ys, fitter.fidelities, steps, 0.001, "all_free",
-            fitter.x_train.shape[0], fitter.row_weights, num_data, generator=fitter.generator,
-        )
+    x = fitter.x_train
+    phase = trainer.TrainPhase(model, x, ys, fitter.fidelities, 0.001, "all_free", x.shape[0],
+                               fitter.row_weights, num_data, chunk=args.steps)
 
-    run(5)  # warm up: kernel build, cuBLAS handles, allocator
+    def run(steps):
+        eps, _ = trainer.draw_chunk(fitter.generator, model.config, steps, ys.shape[0],
+                                    x.shape[0], x.shape[0], x.dtype, x.device)
+        return phase.run_chunk(eps, None)
+
+    run(args.steps)  # warm up and capture: kernel build, cuBLAS handles, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run(args.steps)
@@ -97,6 +103,8 @@ def main() -> None:
         "blackboxes": int(ys.shape[0]),
         "steps": args.steps,
         "steps_per_s": args.steps / wall,
+        "capture_seconds": phase.steps.capture_seconds,
+        "replays": phase.steps.replays,
         "traced_steps_per_s": args.steps / traced_wall,
         "device_us_per_step": busy_us / args.steps,
         "device_share_of_traced_wall": busy_us / (traced_wall * 1e6),
@@ -105,6 +113,7 @@ def main() -> None:
         "k1_launches_per_step": chol.launches / args.steps,
         "top_kernels_us_per_step": {k[:80]: v / args.steps for k, v in top},
     }))
+    phase.close()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ import torch
 from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.linalg import chol, fused_svgp, ops
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.util.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -402,3 +403,172 @@ def test_mfgp_fit_on_card_matches_cpu(cuda_device):
         out.append([t.cpu() for t in (m.params.raw_noise, mean, var)])
     for a, b in zip(out[1], out[0]):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12)
+
+
+def _chunk_problem(n=40, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, 2))
+    fid = np.arange(n) % 2
+    ys = np.stack([np.sin(5 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0]])
+    return x, fid, ys
+
+
+def _assert_rel(got, want, bound=1e-8):
+    """Each tensor within `bound` of the CPU's, relative to its largest
+    entry (chip_smoke.py's measure)."""
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        scale = max(float(b.abs().max()), 1e-300)
+        assert float((a - b).abs().max()) / scale < bound, (a, b)
+
+
+def _predictive(params, model, dev):
+    """The trained models' acquisition predictive (plain route) at 9 points,
+    on the CPU. Raw parameters are not compared: Adam moves some entries
+    from ~0, where it scales the devices' ~1e-13 gradient differences by
+    lr / eps (3e5)."""
+    xq = torch.as_tensor(np.random.default_rng(9).uniform(size=(9, 2)), device=dev)
+    return [t.cpu() for t in M.predict_for_acquisition_all(params, model.consts, model.config, xq)]
+
+
+@pytest.mark.parametrize("batch_size", [40, 16])
+def test_captured_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_size):
+    """A phase cut into chunks of 2 epochs (2 + 2 + 1), replayed from a CUDA
+    graph on the card, against the same phase run eagerly on the CPU from
+    the same draws; K1 launches = one eager step's (2) x the steps."""
+    monkeypatch.setattr(trainer, "chunk_size_for", lambda m: 2)
+    x, fid, ys = _chunk_problem()
+    epochs, nb = 5, 3 if batch_size == 16 else 1
+    g = torch.Generator().manual_seed(1)
+    eps = torch.randn((epochs, 2, 1, 16 * nb if nb > 1 else 40), generator=g,
+                      dtype=torch.float64)
+    perms = torch.argsort(torch.rand((epochs, 2, 40), generator=g), dim=-1) if nb > 1 else None
+    runs = []
+    for dev in ("cpu", cuda_device):
+        models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                               device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
+        model = trainer.stack_models(models)
+        chol.reset_counts()
+        stats = {}
+        params, logs = trainer.train_phase_stacked_chunked(
+            model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
+            torch.as_tensor(fid, device=dev), epochs, 0.003, "all_free", batch_size,
+            eps=eps.to(dev), perms=None if perms is None else perms.to(dev), stats=stats,
+        )
+        if dev != "cpu":
+            assert chol.launches == 2 * nb * epochs
+            assert stats["replays"] == epochs - 2 and stats["chunks"] == 3
+            assert stats["capture_seconds"] > 0
+        runs.append([logs.loss, logs.kl] + _predictive(params, model, dev))
+    _assert_rel(runs[1], runs[0])
+
+
+def test_captured_conditioned_chunks_match_eager_cpu_f64(cuda_device, monkeypatch):
+    """A conditioned phase in chunks of 2 steps (2 + 2 + 1) on the card
+    against the CPU, from the same draws; K1: 2 launches a step."""
+    from mobocmf_tpu_torch.fit import conditioned as C
+
+    monkeypatch.setattr(trainer, "chunk_size_for", lambda m: 2)
+    x, fid, ys = _chunk_problem(24, seed=2)
+    rng = np.random.default_rng(3)
+    pset, pfront = rng.uniform(size=(4, 2)), rng.normal(size=(4, 1))
+    steps = 5
+    runs = []
+    for dev in ("cpu", cuda_device):
+        models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                               device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
+        t = lambda a, **kw: torch.as_tensor(a, device=dev, **kw)
+        data = C.ConditionedData(
+            x=t(x), ys_obj=t(ys[:1]), ys_con=t(ys[1:]), fidelities=t(fid), pareto_set=t(pset),
+            pareto_front=t(pfront), front_mask=t([True, True, True, False]),
+            thresholds=t([0.1], dtype=torch.float64))
+        if dev == "cpu":
+            chunk = C.draw_chunk(torch.Generator().manual_seed(4), data, models[0].config, 24,
+                                 steps)
+        draws = [C.StepDraws(None, chunk.x_tilde[i].to(dev), chunk.eps[i].to(dev))
+                 for i in range(steps)]
+        chol.reset_counts()
+        stats = {}
+        op, cp, losses = C.train_conditioned_chunked(
+            models[0].params, models[1].params, models[0].consts, models[1].consts,
+            models[0].config, data, None, steps, 0.01, 1e-8, 24, draws=draws, stats=stats)
+        if dev != "cpu":
+            assert chol.launches == 2 * steps and stats["replays"] == steps - 2
+        runs.append([losses] + _predictive(op, models[0], dev) + _predictive(cp, models[1], dev))
+    _assert_rel(runs[1], runs[0])
+
+
+def test_counters_under_replay(cuda_device):
+    """K1's launches count the launches that ran (the capture records one,
+    each replay runs one) and its escalations accumulate under replay."""
+    from mobocmf_tpu_torch.fit import graphs
+
+    a = _spd(3, 64, 5, torch.float32, cuda_device)
+    a[1, 10, 10] = -1.0e4
+    jit = torch.full((3,), 1e-6, dtype=torch.float32, device=cuda_device)
+    out = torch.zeros((3, 64, 64), dtype=torch.float32, device=cuda_device)
+
+    def step():
+        out.copy_(chol.cholesky(a, jit, ladder=True)[0])
+
+    chol.reset_counts()
+    steps = graphs.Steps(step, cuda_device)
+    steps.run(7)
+    steps.run(4)
+    torch.cuda.synchronize()
+    assert steps.replays == 11 - graphs.WARMUP and steps.steps == 11
+    assert chol.launches == 11 and chol.captured == 1
+    assert chol.escalations() == 11
+    want, _ = chol.cholesky_plain(a, jit, True)
+    torch.testing.assert_close(out[[0, 2]], want[[0, 2]], rtol=1e-4, atol=1e-4)
+    steps.close()
+    chol.reset_counts()
+    assert chol.escalations() == 0
+
+
+def test_fitter_with_captured_phases_pickles_on_card(cuda_device, tmp_path):
+    """A fitter whose phases ran from CUDA graphs (training, Pareto sample,
+    conditioned training) pickles and unpickles on the card: the same
+    predictions, the same generator state, and it trains on."""
+    import pickle
+
+    from mobocmf_tpu_torch.util.util import read_pickle, save_pickle
+
+    f = _card_fitter(cuda_device)
+    assert all(st["replays"] >= 1 for st in f.phase_stats)
+    f.sample_and_store_pareto_solution()
+    f.train_conditioned_mfdgps()
+    save_pickle(str(tmp_path), "fitter.pkl", f)
+    r = read_pickle(str(tmp_path), "fitter.pkl")
+    xq = torch.rand((9, 2), device=cuda_device)
+    for name in f.obj_names:
+        a, b = f.get_model(name), r.get_model(name)
+        with torch.no_grad():
+            pa = M.predict_for_acquisition_all(a.params, a.consts, a.config, xq)
+            pb = M.predict_for_acquisition_all(b.params, b.consts, b.config, xq)
+        for u, v in zip(pa, pb):
+            assert torch.equal(u, v)
+    assert r.generator.device.type == "cuda"
+    assert torch.equal(f.generator.get_state(), r.generator.get_state())
+    r.train_conditioned_mfdgps()
+    f.train_conditioned_mfdgps()
+    for name in f.obj_names:
+        for u, v in zip(tree_leaves(f.get_model(name).params), tree_leaves(r.get_model(name).params)):
+            assert torch.equal(u, v)
+    pickle.loads(pickle.dumps(r))
+
+
+def test_cuda_generator_round_trips(cuda_device):
+    """A CUDA torch.Generator through pickle and through get_state /
+    set_state continues the same stream."""
+    import pickle
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    torch.randn(5, generator=g, device=cuda_device)
+    h = pickle.loads(pickle.dumps(g))
+    k = torch.Generator(device=cuda_device)
+    k.set_state(g.get_state())
+    want = torch.randn(7, generator=g, device=cuda_device)
+    assert h.device.type == "cuda"
+    assert torch.equal(torch.randn(7, generator=h, device=cuda_device), want)
+    assert torch.equal(torch.randn(7, generator=k, device=cuda_device), want)

@@ -4,6 +4,7 @@ finite outputs. Each runs in a subprocess on one intra-op thread (small
 ops: several threads only slow them down on this CPU)."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,3 +45,37 @@ def test_example_runs_on_the_cpu(name, tmp_path):
     for log in logs:
         rows = np.loadtxt(tmp_path / log, ndmin=2)
         assert rows.shape[0] == 1 and bool(np.isfinite(rows).all()), (log, rows)
+
+
+PIPELINES = {
+    "example_synthetic_2D": ([], ["checkpoint round-trip (unconditioned) OK: predictions equal",
+                                  "checkpoint round-trip (conditioned) OK: predictions equal"]),
+    "example_acquisition_mfdgp_forrester": (["--fast"], [
+        "fitter pickle round-trip OK: predictions equal",
+        "jesmoc pickle round-trip OK: predictions equal"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PIPELINES))
+def test_pipeline_example_runs_on_the_cpu(name):
+    """The two examples that save, restore or pickle the fitter between its
+    phases: the round-trip lines, a finite conditioned loss and finite,
+    non-negative acquisition maxima. The Pareto points and MOOP attempts
+    are printed, not required: with standardized thresholds the MOOP's
+    rule can leave such a problem with no feasible point."""
+    args, lines = PIPELINES[name]
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", f"mobocmf_tpu_torch.examples.{name}", *args, "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    text = out.stdout.splitlines()
+    for line in lines:
+        assert line in text, out.stdout[-4000:]
+    print([s for s in text if s.startswith("pareto points")])
+    loss = [float(s.split(":")[1]) for s in text if s.startswith("conditioned loss:")]
+    assert len(loss) == 1 and np.isfinite(loss[0])
+    maxima = [float(m) for s in text if s.startswith(("acq ", "coupled "))
+              for m in re.findall(r"max=(\S+?);?(?:\s|$)", s)]
+    assert len(maxima) >= 2 and all(np.isfinite(m) and m >= 0.0 for m in maxima), maxima

@@ -33,6 +33,8 @@ from mobocmf_tpu_torch.examples.example_batch_bo_10d import main as batch10d_mai
 from mobocmf_tpu_torch.examples.example_branin_currin_512 import main as bc512_main
 from mobocmf_tpu_torch.examples.example_dtlz2_2048 import main as dtlz2_main
 from mobocmf_tpu_torch.examples.example_mesmoc_mfgp import main as mesmoc_main
+from mobocmf_tpu_torch.examples.example_synthetic_2D import main as synthetic2d_main
+from mobocmf_tpu_torch.examples.example_acquisition_mfdgp_forrester import main as forrester_main
 from mobocmf_tpu_torch.models.exact_gp import init_exact_gp
 from mobocmf_tpu_torch.models.mfgp import init_mfgp
 from mobocmf_tpu_torch.models.mfgp_lin import init_mfgp_lin
@@ -44,7 +46,8 @@ for name in ("bench", "bo.loop", "acquisition.batch", "acquisition.random_choice
              "examples.toy_synthetic_2D_JESMOCMF", "kernels.mf_exact", "models.exact_gp",
              "models.mfgp", "models.mfgp_lin", "acquisition.mesmoc", "util.util",
              "util.profiling", "examples.example_mesmoc_mfgp", "examples.example_branin_currin_512",
-             "examples.example_batch_bo_10d", "examples.example_dtlz2_2048"):
+             "examples.example_batch_bo_10d", "examples.example_dtlz2_2048", "fit.graphs",
+             "examples.example_synthetic_2D", "examples.example_acquisition_mfdgp_forrester"):
     assert "mobocmf_tpu_torch." + name in walked, name
 
 leaked = sorted(m for m in sys.modules
@@ -73,6 +76,8 @@ calls = [
     lambda: bc512_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
     lambda: batch10d_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
     lambda: dtlz2_main(["--fast", "--iters", "0", "--log-dir", "unused"]),
+    lambda: synthetic2d_main([]),
+    lambda: forrester_main(["--fast"]),
     lambda: MESMOC_MFGP({}, {}, 2, 2, {}, {}),
     lambda: init_mfgp(np.c_[x, fid], x[:, 0], 2),
     lambda: init_mfgp_lin(np.c_[x, fid], x[:, 0], 2),

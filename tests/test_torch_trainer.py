@@ -59,10 +59,10 @@ def _port_model(sp, sc, config):
     )
 
 
-def _jax_draws(key, num_models, num_epochs, n, nf, perm=False, padded=None):
-    """The eps (and permutations) train_phase_stacked_chunked draws for one
-    chunk (num_epochs <= the chunk size)."""
-    keys = jax.random.split(jax.random.fold_in(key, 0), num_models)
+def _jax_draws(key, num_models, num_epochs, n, nf, perm=False, padded=None, chunk=0):
+    """The eps (and permutations) train_phase_stacked_chunked draws for its
+    chunk number `chunk` of num_epochs epochs."""
+    keys = jax.random.split(jax.random.fold_in(key, chunk), num_models)
     eps, perms = [], []
     for km in keys:
         e_m, p_m = [], []
