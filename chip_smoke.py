@@ -76,7 +76,18 @@
    --fast): the round trips on the card keep every prediction, K2 runs on
    their acquisition surfaces, and K1 / K2 launches per stage equal the
    counts predicted (PIPELINE_STAGES);
-10. prints, for every path, its captured phases' steps per second with the
+10. runs the device mesh (mobocmf_tpu_torch/parallel/): (a) the dry run
+   (parallel/dryrun.py) at the bench's width in f64 on a 2 x 2 mesh of four ranks
+   that share the card over gloo, its phases uncaptured, (b) the same on a
+   1 x 1 NCCL mesh, its phases captured with the all-reduce inside the
+   graph, each held to the same body run unsharded in this process, and (c)
+   one run_bo_loop iteration at the loop phase's width with
+   BOConfig(mesh=make_mesh(2, bb=1)) on two ranks: the logs written once,
+   by rank 0, with the unsharded loop's file set, the same BOState on
+   every rank, and the sharded MOOP's front equal to rank 0's unsharded
+   MOOP on the same samples and grid; K1 and K2 launch on every rank,
+   counted per rank and per stage;
+11. prints, for every path, its captured phases' steps per second with the
    capture seconds and replays, each phase's seconds, the kernel line and,
    last, {"ok": true, "device": {...}}.
 
@@ -87,6 +98,7 @@ checkout of the repo, or when any check fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -1079,6 +1091,158 @@ def phase_loop(P, root) -> dict:
     return dict(k1=k1_a, k2=k2_a)
 
 
+def mesh_loop_rank(log_dir: str) -> dict:
+    """One rank of the mesh phase's (c): one run_bo_loop iteration at the
+    loop phase's width with BOConfig(mesh=make_mesh(2, bb=1)), every MOOP
+    call recorded (its grid drawn here as the MOOP draws it); rank 0 then
+    solves the last MOOP call's samples and grid unsharded. The counters
+    are set to 0 just before the loop and read just after."""
+    import torch.distributed as dist
+
+    from mobocmf_tpu_torch.bench import bench_blackboxes
+    from mobocmf_tpu_torch.bo import loop
+    from mobocmf_tpu_torch.linalg import chol, fused_svgp
+    from mobocmf_tpu_torch.moop.moop import MOOP
+    from mobocmf_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = sharding.make_mesh(2, bb=1)
+    calls = []
+    solve = MOOP.compute_pareto_solution_from_samples
+
+    def recorded(self, inputs, generator=None, allow_negative_constraints=False,
+                 inputs_valid=None, grid=None, like=None):
+        if grid is None:
+            grid = torch.rand((self.input_dim * self.grid_size, self.input_dim),
+                              generator=generator, dtype=torch.float64,
+                              device=like.device).cpu().numpy()
+        out = solve(self, inputs, generator, allow_negative_constraints, inputs_valid, grid, like)
+        calls.append((self, inputs, allow_negative_constraints, inputs_valid, grid, like, out))
+        return out
+
+    MOOP.compute_pareto_solution_from_samples = recorded
+    rng = np.random.default_rng(0)
+    x_init = rng.uniform(size=(120, 2)).astype(np.float32)
+    fid_init = np.concatenate([np.zeros(80), np.ones(40)]).astype(int)
+    config = loop.BOConfig(num_bo_iterations=1, seed=0, log_dir=log_dir, pad_data=True,
+                           num_epochs_1=LOOP_EPOCHS, num_epochs_2=LOOP_EPOCHS,
+                           track_recommendation=True, mesh=mesh, device="cuda")
+    blackboxes = bench_blackboxes(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    chol.reset_counts()
+    fused_svgp.reset_counts()
+    sharding.reset_counts()
+    t0 = time.perf_counter()
+    state = loop.run_bo_loop(blackboxes, x_init, fid_init, config)
+    torch.cuda.synchronize(dev)
+    out = dict(wall=time.perf_counter() - t0, k1=chol.launches, k2=fused_svgp.launches,
+               collective_seconds=sharding.seconds, collectives=sharding.calls,
+               memory=torch.cuda.max_memory_allocated(dev), moop_calls=len(calls),
+               x=state.x, fid=state.fidelities, ys=state.ys, hv=state.hypervolumes,
+               transport=sharding.transport(mesh))
+    if dist.get_rank() == 0:
+        moop, inputs, allow, valid, grid, like, res = calls[-1]
+        alone = copy.copy(moop)
+        alone.mesh = None
+        ref = solve(alone, inputs, None, allow, valid, grid, like)
+        out["fronts"] = [None if r is None else (r[0].pareto_set.cpu().numpy(),
+                                                r[0].pareto_front.cpu().numpy(),
+                                                r[0].num_valid) for r in (res, ref)]
+    return out
+
+
+def print_dryrun(label: str, summary: dict, seconds: float) -> dict:
+    """The mesh phase's lines for one dry run; its K1 / K2 launches per rank."""
+    ranks = summary["ranks"]
+    stages = [k for k in ranks[0] if isinstance(ranks[0][k], dict)]
+    mem = [r["max_memory_bytes"] / 2**30 for r in ranks]
+    coll = [sum(r[k]["collective_seconds"] for k in stages) for r in ranks]
+    print(f"[mesh] {label}: mesh {summary['mesh']}, backend {summary['backend']}, transport "
+          f"{ranks[0]['transport']}, wall {seconds:.3f} s (ranks {summary['sharded_seconds']:.3f} "
+          f"s), max memory per rank {[round(m, 3) for m in mem]} GiB, collective seconds per "
+          f"rank {[round(c, 3) for c in coll]}, inducing-sharded predictive max |diff| per rank "
+          f"{[r['predictive_err'] for r in ranks]}", flush=True)
+    for ph in summary["phases"]:
+        print(f"[steps] mesh {label} {ph['label']}: {ph['steps']} steps, captured "
+              f"{ph['captured']} ({ph['capture_reason']}), {ph['replays']} replays, capture "
+              f"{ph['capture_seconds']:.3f} s", flush=True)
+    for k in stages:
+        print(f"[mesh] {label} {k}: seconds per rank "
+              f"{[round(r[k]['seconds'], 3) for r in ranks]} (unsharded "
+              f"{summary['reference'][k]['seconds']:.3f}); K1 / K2 per rank "
+              f"{[(r[k]['k1'], r[k]['k2']) for r in ranks]} (unsharded "
+              f"{summary['reference'][k]['k1']} / {summary['reference'][k]['k2']}); "
+              f"collectives {ranks[0][k]['collectives']} (graph replays included) in "
+              f"{ranks[0][k]['collective_seconds']:.3f} s of host time on rank 0", flush=True)
+    k1 = [sum(r[k]["k1"] for k in stages) for r in ranks]
+    k2 = [sum(r[k]["k2"] for k in stages) for r in ranks]
+    check(all(a > 0 for a in k1) and all(b > 0 for b in k2),
+          f"mesh {label}: a rank launched no K1 or no K2 ({k1}, {k2})")
+    check(all(r["inducing"]["k2"] > 0 for r in ranks),
+          f"mesh {label}: the inducing-sharded predictive launched no K2 on some rank")
+    return dict(k1=k1, k2=k2)
+
+
+def phase_mesh(P, root) -> dict:
+    """(a) the dry run on a 2 x 2 gloo mesh, (b) on a 1 x 1 NCCL mesh, (c)
+    run_bo_loop with BOConfig.mesh on two ranks; returns the K1 / K2
+    launches per rank of each."""
+    from mobocmf_tpu_torch.parallel import dryrun, launch
+
+    out = {}
+    for key, label, n, backend in (("mesh_dryrun", "(a) dry run 2x2", 4, "gloo"),
+                                   ("mesh_nccl1", "(b) dry run 1x1", 1, "nccl")):
+        t0 = time.perf_counter()
+        summary = dryrun.dryrun_multichip(n, device="cuda", size=dryrun.BENCH)
+        out[key] = print_dryrun(label, summary, time.perf_counter() - t0)
+        check(summary["backend"] == backend, f"mesh {label}: backend {summary['backend']}")
+        want = backend == "nccl"
+        check(all(ph["captured"] == want for ph in summary["phases"]),
+              f"mesh {label}: phases captured {[ph['captured'] for ph in summary['phases']]}")
+        # one gradient all-reduce a training step, replayed ones included
+        steps = sum(ph["steps"] for ph in summary["phases"] if ph["label"] != "cond")
+        got = [r["uncond"]["collectives"] for r in summary["ranks"]]
+        check(all(c >= steps for c in got),
+              f"mesh {label}: {got} collectives counted for {steps} training steps")
+
+    t0 = time.perf_counter()
+    res = launch.run(mesh_loop_rank, 2, str(root / "loop"), device="cuda", timeout_s=900)
+    seconds = time.perf_counter() - t0
+    rows = log_rows(root / "loop")
+    check(set(rows) == set(LOOP_LOGS), f"mesh (c): log files {sorted(rows)}")
+    for name, cols in LOOP_LOGS.items():
+        check(rows[name].shape == (1, cols),
+              f"mesh (c): {name} holds {rows[name].shape}, not one row of {cols}")
+    for r, got in enumerate(res):
+        same = (np.array_equal(got["x"], res[0]["x"]) and np.array_equal(got["fid"], res[0]["fid"])
+                and all(np.array_equal(got["ys"][k], res[0]["ys"][k]) for k in got["ys"])
+                and got["hv"] == res[0]["hv"])
+        check(same, f"mesh (c): rank {r} ended with another BOState than rank 0")
+        check(got["k1"] > 0 and got["k2"] > 0,
+              f"mesh (c): rank {r} launched K1 {got['k1']}, K2 {got['k2']}")
+    fronts = res[0]["fronts"]
+    check((fronts[0] is None) == (fronts[1] is None), f"mesh (c): sharded MOOP {fronts}")
+    if fronts[0] is not None:
+        (ps, pf, nv), (ps0, pf0, nv0) = fronts
+        check(nv == nv0 and np.allclose(ps, ps0, atol=1e-5) and np.allclose(pf, pf0, atol=1e-4),
+              f"mesh (c): the sharded MOOP's front differs from rank 0's unsharded one by "
+              f"{np.abs(pf - pf0).max()}")
+    check_new_points("mesh (c)", SimpleNamespace(x=res[0]["x"], fidelities=res[0]["fid"],
+                                                 hypervolumes=res[0]["hv"]), 120, 1)
+    print(f"[mesh] (c) run_bo_loop with BOConfig.mesh (1, 2): backend gloo, transport "
+          f"{res[0]['transport']}, wall {seconds:.3f} s (loop per rank "
+          f"{[round(g['wall'], 3) for g in res]} s), max memory per rank "
+          f"{[round(g['memory'] / 2**30, 3) for g in res]} GiB, collectives per rank "
+          f"{[g['collectives'] for g in res]} in {[round(g['collective_seconds'], 3) for g in res]}"
+          f" s, MOOP calls {res[0]['moop_calls']}; K1 / K2 per rank "
+          f"{[(g['k1'], g['k2']) for g in res]}; phase_seconds row "
+          f"{rows['phase_seconds.txt'][0].tolist()}; sharded front == unsharded on rank 0 "
+          f"({'none' if fronts[0] is None else fronts[0][2]} points)", flush=True)
+    out["mesh_loop"] = dict(k1=[g["k1"] for g in res], k2=[g["k2"] for g in res])
+    return out
+
+
 MESMOC_ITERS = 5
 # K1 launches per MESMOC iteration, predicted in PERF.md before the
 # first run: 3 fits x 150 NLML steps, 2 fidelities x 3 posterior states in
@@ -1490,6 +1654,8 @@ def main() -> int:
                           ["gap_uncond", "gap_cond"])
         run_forr = stepped("forrester", phase_pipeline, P, "forrester", forrester_main,
                            ["--fast"], ["gap_fitter", "gap_jes"])
+        with tempfile.TemporaryDirectory() as tmp:
+            run_mesh = timed("mesh", phase_mesh, P, Path(tmp))
         timed("k1 timings", time_k1, P, k1)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -1522,7 +1688,8 @@ def main() -> int:
                                  "b128": run_b["k1_train"] + run_b["k1_slice"],
                                  "loop": run_loop_a["k1"], "mesmoc": run_mes["k1"],
                                  "dtlz2_2048": run_dtlz2["k1"], "batch10d": run_b10["k1"],
-                                 "synthetic2d": run_s2d["k1"], "forrester": run_forr["k1"]},
+                                 "synthetic2d": run_s2d["k1"], "forrester": run_forr["k1"],
+                                 **{k: v["k1"] for k, v in run_mesh.items()}},
             "at_mesmoc_shape": {key: small[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": k1_rec["max_abs_err"],
@@ -1542,7 +1709,8 @@ def main() -> int:
                                  "b128": run_b["k2_acq"] + run_b["k2_rec"],
                                  "loop": run_loop_a["k2"], "mesmoc": run_mes["k2"],
                                  "dtlz2_2048": run_dtlz2["k2"], "batch10d": run_b10["k2"],
-                                 "synthetic2d": run_s2d["k2"], "forrester": run_forr["k2"]},
+                                 "synthetic2d": run_s2d["k2"], "forrester": run_forr["k2"],
+                                 **{k: v["k2"] for k, v in run_mesh.items()}},
             "at_path_shapes": {name: dict(shape=r["k2_shape"], **r["k2_timing"])
                                for name, r in (("dtlz2_2048", run_dtlz2), ("batch10d", run_b10))},
             "max_abs_err": k2_rec["max_abs_err"],

@@ -2,7 +2,7 @@
 
 The JAX package `mobocmf_tpu` is the reference; this package mirrors its
 module layout (core/, kernels/, linalg/, models/, mlls/, fit/,
-test_functions/, sampling/, moop/, acquisition/, bo/) so each module's
+test_functions/, sampling/, moop/, acquisition/, bo/, parallel/) so each module's
 counterpart is found by name. It imports torch, numpy and scipy only —
 never jax, and nothing of `mobocmf_tpu`.
 
@@ -15,8 +15,9 @@ checkpoints, warm start), the exact-GP models and MESMOC
 (`models/mfgp.py`, `models/mfgp_lin.py`, `models/exact_gp.py`,
 `acquisition/mesmoc.py`), with two hand-written CUDA kernels: the blocked
 Cholesky (K1, `linalg/chol.py`, `csrc/chol.cu`) and the fused RBF-SVGP
-predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`). Entry
-scripts: `python -m mobocmf_tpu_torch.examples.toy_synthetic_2D_JESMOCMF`
+predictive (K2, `linalg/fused_svgp.py`, `csrc/fused_svgp.cu`), and the
+device mesh (`parallel/`: the JAX package's sharding on torch.distributed,
+one process per rank, and its multi-device dry run). Entry scripts: `python -m mobocmf_tpu_torch.examples.toy_synthetic_2D_JESMOCMF`
 and the other `examples/` modules, and `python -m mobocmf_tpu_torch.bench`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no

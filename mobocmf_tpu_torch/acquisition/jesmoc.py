@@ -26,6 +26,14 @@ Construction follows the reference's contract: the passed fitter is
 snapshotted as the unconditioned model, then, when model_cond is not
 given, Pareto sampling and conditioned training run here and turn the
 passed fitter into the conditioned model (:70-86).
+
+Over a mesh (`mesh=`, parallel/sharding.py) the pair stack is sharded
+over 'bb': a rank holds the same blackboxes of both halves (its slice of
+the unconditioned models and of the conditioned ones), sums their gains
+and the sum is all-reduced over 'bb' (`sharding.reduce`, with the point
+entering through `sharding.enter` so its gradient is summed too). Every
+rank then has the same value and gradient, and the L-BFGS line searches
+take the same branches on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from mobocmf_tpu_torch.acquisition.optimize import optimize_acqf_box, optimize_a
 from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.parallel import sharding
 
 # the acquisition states carry the explicit L^{-1}, so every per-x solve
 # of the L-BFGS loop is a matrix product (JAX package's ACQ_INV_SOLVES)
@@ -51,9 +60,22 @@ def _gain(var: torch.Tensor, num: int) -> torch.Tensor:
     return 0.5 * torch.clamp(torch.log(var[:num]) - torch.log(var[num:]), min=0.0)
 
 
-def _pair(su_p, su_c, sc_p, sc_c, config) -> M.MFDGPModel:
-    """The unconditioned models followed by the conditioned ones, stacked."""
-    return trainer.stack_models([M.MFDGPModel(su_p, su_c, config), M.MFDGPModel(sc_p, sc_c, config)])
+def _pair(su_p, su_c, sc_p, sc_c, config, mesh=None) -> M.MFDGPModel:
+    """The unconditioned models followed by the conditioned ones, stacked
+    (over a mesh, this 'bb' rank's slice of each)."""
+    models = [M.MFDGPModel(su_p, su_c, config), M.MFDGPModel(sc_p, sc_c, config)]
+    if mesh is not None:
+        b = trainer.model_block(mesh, su_p.raw_noises.shape[0])
+        models = [trainer.select_model(m, b.start, b.stop) for m in models]
+    return trainer.stack_models(models)
+
+
+def _over_bb(acq, mesh):
+    """acq summed over the mesh's 'bb' ranks (value and gradient in x)."""
+    if mesh is None:
+        return acq
+    grp = mesh.get_group("bb")
+    return lambda xx: sharding.reduce(acq(sharding.enter(xx, grp)), grp)
 
 
 def pair_states(pair: M.MFDGPModel) -> List[M.LayerState]:
@@ -74,9 +96,11 @@ def _coupled_gain_stacked(pair: M.MFDGPModel, fidelity: int, x, states) -> torch
     return torch.sum(_gain(var, var.shape[0] // 2), dim=0)
 
 
-def coupled_acq_stacked(su_p, su_c, sc_p, sc_c, config, fidelity: int, x) -> torch.Tensor:
-    pair = _pair(su_p, su_c, sc_p, sc_c, config)
-    return _coupled_gain_stacked(pair, fidelity, x, pair_states(pair))
+def coupled_acq_stacked(su_p, su_c, sc_p, sc_c, config, fidelity: int, x,
+                        mesh=None) -> torch.Tensor:
+    pair = _pair(su_p, su_c, sc_p, sc_c, config, mesh)
+    states = pair_states(pair)
+    return _over_bb(lambda xx: _coupled_gain_stacked(pair, fidelity, xx, states), mesh)(x)
 
 
 def _coupled_gain_all_stacked(pair: M.MFDGPModel, x, states) -> torch.Tensor:
@@ -103,17 +127,19 @@ def optimize_coupled_jes(
 
 def optimize_coupled_jes_all_fidelities(
     su_p, su_c, sc_p, sc_c, config, generator, input_dim: int,
-    num_restarts: int = 5, raw_samples: int = 200, maxiter: int = 200, raw=None,
+    num_restarts: int = 5, raw_samples: int = 200, maxiter: int = 200, raw=None, mesh=None,
 ):
     """Maximize the coupled JES acquisition at every fidelity in one search:
     the layer states are computed once, one screening scores every fidelity,
     and all F x num_restarts L-BFGS lanes run together. Returns
-    (xs (F, d), values (F,))."""
-    pair = _pair(su_p, su_c, sc_p, sc_c, config)
+    (xs (F, d), values (F,)). mesh: the pair stack over 'bb' (the module
+    docstring); every rank returns the same."""
+    pair = _pair(su_p, su_c, sc_p, sc_c, config, mesh)
     states = pair_states(pair)
     z = su_c.z_x[0]
     return optimize_acqf_box_multi(
-        lambda xx: _coupled_gain_all_stacked(pair, xx, states), config.num_fidelities,
+        _over_bb(lambda xx: _coupled_gain_all_stacked(pair, xx, states), mesh),
+        config.num_fidelities,
         input_dim, generator, num_restarts=num_restarts, raw_samples=raw_samples,
         maxiter=maxiter, dtype=z.dtype, device=z.device, raw=raw,
     )

@@ -11,6 +11,14 @@ either package resumes the other's campaign: points and fidelities are
 appended every iteration and replayed on restart (reference toy:277-301).
 Phase times synchronize the device before each clock read, so work queued
 on the card is charged to the phase that queued it.
+
+Under `BOConfig.mesh` (parallel/sharding.py) every rank of the mesh runs
+the loop and the fitter gives the mesh to the MOOP, which shards its grid
+evaluations. Only the mesh's first rank writes the log directory, the
+checkpoints and the plots, evaluates the blackboxes and reads the resume
+state; every host decision (the resume state, the evaluations, the next
+point and fidelity, the recommendation) is broadcast from it, so every
+rank ends with the same BOState.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from mobocmf_tpu_torch.fit.conditioned import empty_like_stack
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.mfdgp import TL
+from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util import checkpoint, heartbeat
 from mobocmf_tpu_torch.util.describe import describe_hyperparams
 from mobocmf_tpu_torch.util.hypervolume import hypervolume, hypervolume_pair
@@ -55,8 +64,9 @@ class Blackbox:
 @dataclasses.dataclass
 class BOConfig:
     """The JAX package's BOConfig (its field names, defaults and checks),
-    without `mesh` (several devices are not ported), with `device` (`cuda`
-    unless named) and `dtype` (float32 unless named)."""
+    with `device` (`cuda` unless named) and `dtype` (float32 unless named).
+    `mesh` is a mesh of parallel/sharding.py::make_mesh over the ranks that
+    run the loop (the module docstring)."""
 
     num_fidelities: int = 2
     num_bo_iterations: int = 60
@@ -114,6 +124,9 @@ class BOConfig:
     # seconds prints the hung phase and exits 86; None = disarmed unless
     # MOBOCMF_STALL_TIMEOUT_S is set
     stall_timeout_s: Optional[float] = None
+    # optional mesh (parallel/sharding.py::make_mesh): shards the MOOP grid
+    # evaluations over the mesh's 'dp' axis (parallel/sharding.sharded_grid_eval)
+    mesh: Optional[object] = None
     device: DeviceLike = None
     dtype: Optional[torch.dtype] = None
 
@@ -170,6 +183,10 @@ def run_bo_loop(
 
     d = x_init.shape[1]
     log_dir = config.log_dir
+    mesh = config.mesh
+    root = sharding.is_root(mesh)
+    # the directory this rank writes (the mesh's first rank only)
+    out_dir = log_dir if root else None
     x = np.asarray(x_init, dtype=float)
     fid = np.asarray(fidelities_init, dtype=int).reshape(-1)
 
@@ -183,7 +200,7 @@ def run_bo_loop(
 
     # resume from logs if present (reference toy:277-301)
     start_iter = 0
-    if log_dir is not None:
+    if out_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
         pts_file = os.path.join(log_dir, "points_evaluated.txt")
         fid_file = os.path.join(log_dir, "fidelities_evaluated.txt")
@@ -209,21 +226,24 @@ def run_bo_loop(
         # process's one-time costs (kernel builds, allocator warm-up)
         with open(os.path.join(log_dir, "process_starts.txt"), "a") as fh:
             fh.write(f"{start_iter}\n")
+    x, fid, start_iter = sharding.broadcast_object(mesh, (x, fid, start_iter))
 
     def eval_all(x_pts: np.ndarray, f: np.ndarray) -> Dict[str, np.ndarray]:
+        """Every blackbox at its fidelity per point (the mesh's first rank
+        evaluates, every rank gets its values)."""
         out: Dict[str, np.ndarray] = {}
-        for bb in blackboxes:
+        for bb in blackboxes if root else ():
             y = np.empty(x_pts.shape[0])
             for level in range(config.num_fidelities):
                 sel = f == level
                 if sel.any():
                     y[sel] = np.asarray(bb.fns[level](x_pts[sel])).reshape(-1)
             out[bb.name] = y
-        return out
+        return sharding.broadcast_object(mesh, out)
 
     ys = eval_all(x, fid)
     state = BOState(x=x, fidelities=fid, ys=ys, hypervolumes=[])
-    if log_dir is not None:
+    if out_dir is not None:
         obs_file = os.path.join(log_dir, "observed_hypervolumes.txt")
         if os.path.exists(obs_file) and os.path.getsize(obs_file) > 0:
             state.hypervolumes = list(np.atleast_1d(np.loadtxt(obs_file)))
@@ -238,6 +258,7 @@ def run_bo_loop(
                 "start at iteration 0)"
             )
             state.hypervolumes = state.hypervolumes + [float("nan")] * missing
+    state.hypervolumes = sharding.broadcast_object(mesh, state.hypervolumes)
 
     prev_fitter = None
     # the random baseline trains no models unless something consumes them
@@ -281,6 +302,13 @@ def run_bo_loop(
             except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) as e:
                 print(f"[BO iter {it}] model restore failed ({e!r}); retraining")
                 loaded = False
+            if sharding.broadcast_object(mesh, loaded) != loaded:
+                raise RuntimeError(f"[BO iter {it}] the mesh's ranks disagree on restoring "
+                                   f"{models_dir}")
+            if loaded:
+                for f in (fitter, cond):
+                    if f is not None:
+                        f.mesh = mesh
         if not needs_models:
             fitter, cond = None, None
         elif not loaded:
@@ -293,7 +321,7 @@ def run_bo_loop(
                 type_lengthscale=config.type_lengthscale, seed=config.seed + it,
                 pad_data=config.pad_data, polish=config.polish,
                 whitened=config.whitened, whitened_init=config.whitened_init,
-                device=device, dtype=dtype,
+                device=device, dtype=dtype, mesh=mesh,
             )
             for bb in blackboxes:
                 mean, std = stats[bb.name]
@@ -311,7 +339,7 @@ def run_bo_loop(
             # setup = fitter construction + per-blackbox model init
             phase_t["setup"] = clock() - t_iter
             heartbeat.beat(f"iter{it}:setup")
-            if log_dir is not None:
+            if out_dir is not None:
                 # warm-start fetch, host init math, ship to the device, and
                 # the rest (standardize, constructor, bookkeeping)
                 ti = fitter.init_timings
@@ -334,7 +362,7 @@ def run_bo_loop(
                 cond.sample_and_store_pareto_solution()
                 phase_t["pareto"] = clock() - t0
                 heartbeat.beat(f"iter{it}:pareto")
-                if log_dir is not None:
+                if out_dir is not None:
                     # MOOP attempts consumed (1 = the first draw was feasible)
                     with open(os.path.join(log_dir, "pareto_resamples.txt"), "a") as fh:
                         fh.write(f"{it} {n} {cond.pareto_tries}\n")
@@ -342,13 +370,13 @@ def run_bo_loop(
                 cond.train_conditioned_mfdgps()
                 phase_t["cond"] = clock() - t0
                 heartbeat.beat(f"iter{it}:cond")
-            if config.store_models_in_disk and models_dir is not None:
+            if config.store_models_in_disk and models_dir is not None and root:
                 checkpoint.save_fitter(os.path.join(models_dir, "uncond"), fitter)
                 if cond is not None:
                     checkpoint.save_fitter(os.path.join(models_dir, "cond"), cond)
         prev_fitter = fitter
 
-        if config.dump_params and log_dir is not None:
+        if config.dump_params and out_dir is not None:
             params_dir = os.path.join(log_dir, "params")
             os.makedirs(params_dir, exist_ok=True)
             for bb in blackboxes:
@@ -387,6 +415,7 @@ def run_bo_loop(
                 # the q=1 maximizer seeds the batch as its first point
                 xs_batch = jes.get_batch_coupled(fid_next, config.q - 1, x0=x_next)
                 x_next = np.vstack([x_next, _to_numpy(xs_batch)])
+        x_next, fid_next = sharding.broadcast_object(mesh, (x_next, int(fid_next)))
         phase_t["acq"] = clock() - t0
         heartbeat.beat(f"iter{it}:acq")
         fid_batch = np.full(x_next.shape[0], fid_next, dtype=int)
@@ -406,7 +435,7 @@ def run_bo_loop(
             f"n={n} wallclock={wall:.2f}s"
         )
         sys.stdout.flush()
-        if log_dir is not None:
+        if out_dir is not None:
             with open(os.path.join(log_dir, "iteration_seconds.txt"), "a") as fh:
                 fh.write(f"{it} {n} {wall:.3f}\n")
 
@@ -417,6 +446,7 @@ def run_bo_loop(
                 fitter, blackboxes, stats, config,
                 grid_size=config.recommendation_grid_size, seed=config.seed + it,
             )
+            rec = sharding.broadcast_object(mesh, rec)
             phase_t["recommend"] = clock() - t0
             heartbeat.beat(f"iter{it}:recommend")
             print(
@@ -425,7 +455,7 @@ def run_bo_loop(
                 f"(feasible={rec.feasible}, dropped={rec.num_infeasible})"
             )
 
-        if config.plot_surfaces and log_dir is not None and fitter is not None:
+        if config.plot_surfaces and out_dir is not None and fitter is not None:
             try:
                 plot_iteration_surfaces(
                     os.path.join(log_dir, "plots"), it, fitter, cond, blackboxes,
@@ -437,14 +467,14 @@ def run_bo_loop(
         if phase_t:
             breakdown = " ".join(f"{k}={v:.2f}s" for k, v in phase_t.items())
             print(f"[BO iter {it}] phases: {breakdown}")
-            if log_dir is not None:
+            if out_dir is not None:
                 with open(os.path.join(log_dir, "phase_seconds.txt"), "a") as fh:
                     fh.write(
                         f"{it} {n} "
                         + " ".join(f"{phase_t.get(k, 0.0):.3f}" for k in PHASES)
                         + "\n"
                     )
-        if log_dir is not None:
+        if out_dir is not None:
             with open(os.path.join(log_dir, "points_evaluated.txt"), "a") as fh:
                 np.savetxt(fh, x_next)
             with open(os.path.join(log_dir, "fidelities_evaluated.txt"), "a") as fh:

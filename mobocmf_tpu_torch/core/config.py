@@ -6,6 +6,8 @@ runs float32 with a widened jitter, the CPU parity tests float64.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 # Jitter added to K(Z,Z) before Cholesky: the reference's 2e-6 in f64,
@@ -29,3 +31,17 @@ def default_jitter(dtype: torch.dtype) -> float:
     if dtype == torch.float64:
         return JITTER_F64
     return JITTER_F32
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Hyperparameters of the two-phase and conditioned trainers; the
+    defaults are BlackBoxMFDGPFitter's (fit/fitter.py)."""
+
+    lr_1: float = 0.003
+    lr_2: float = 0.001
+    num_epochs_1: int = 5000
+    num_epochs_2: int = 15000
+    pareto_set_size: int = 50
+    opt_grid_size: int = 1000
+    eps: float = 1e-8

@@ -26,6 +26,19 @@ is smaller than the data), x_tilde and the propagation normals; they come
 from a torch.Generator, drawn a chunk of steps at a time before the chunk
 runs, or are injected (`StepDraws`). The phase runs in bounded chunks as
 the unconditioned phases do (fit/trainer.py, fit/graphs.py).
+
+Over a mesh (`mesh=`, parallel/sharding.py) the split follows the
+unconditioned phases' (fit/trainer.py), with three rules because the loss
+is not a plain sum over rows or blackboxes: objectives and constraints
+are sharded over 'bb' separately (each rank keeps its slice of each, and
+each constraint its threshold); each 'dp' rank takes its block of the
+batch rows and divides its minibatch term by the GLOBAL batch weight sum
+(every rank has the whole chunk's draws), so the local terms add up over
+'dp'; the Pareto and x_tilde terms (ll, theta, omega) are added by every
+'dp' rank divided by the 'dp' size, so the gradient all-reduce counts them
+once. omega multiplies over every objective and constraint at x_tilde:
+the top layer's means and variances there are gathered over 'bb'
+(`sharding.gather`) before the products.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch
 from mobocmf_tpu_torch.fit import graphs, trainer
 from mobocmf_tpu_torch.mlls.elbo import _data_term, gaussian_expected_log_prob
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
@@ -115,6 +129,19 @@ def _stack(obj_params, con_params, obj_consts, con_consts):
     return params, consts
 
 
+class Shard(NamedTuple):
+    """One rank's part of the conditioned loss over a mesh: its slices of
+    the objectives and constraints, the share of the Pareto and x_tilde
+    terms it adds (1 / dp), the 'bb' group omega gathers over (None when
+    bb = 1) and the batch's global weight sum."""
+
+    objs: slice
+    cons: slice
+    once: float
+    bb_group: object
+    weight_sum: torch.Tensor
+
+
 def _loss_stacked(
     params: M.MFDGPParams,
     consts: M.MFDGPConsts,
@@ -125,15 +152,23 @@ def _loss_stacked(
     batch_w: torch.Tensor,
     x_tilde: torch.Tensor,
     eps: torch.Tensor,
-) -> torch.Tensor:
+    shard: Optional[Shard] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """The conditioned loss of O objectives followed by C constraints,
-    stacked on one blackbox dim (O = rows of data.ys_obj)."""
-    num_obj = data.ys_obj.shape[0]
+    stacked on one blackbox dim (O = rows of data.ys_obj), as (the
+    blackboxes' terms, omega): the loss is terms - omega. With `shard`,
+    params hold this rank's objectives then constraints and batch_idx its
+    rows, and the terms are this rank's part (omega is whole)."""
+    objs = slice(None) if shard is None else shard.objs
+    cons = slice(None) if shard is None else shard.cons
+    once = 1.0 if shard is None else shard.once
+    num_obj = data.ys_obj[objs].shape[0]
     b = batch_idx.shape[0]
     p = data.pareto_set.shape[0]
     top = config.num_fidelities - 1
     n_real = data.x.shape[0] if data.row_weights is None else torch.sum(data.row_weights)
-    ys = torch.cat([data.ys_obj, data.ys_con], dim=0)
+    ys = torch.cat([data.ys_obj[objs], data.ys_con[cons]], dim=0)
+    weight_sum = torch.sum(batch_w) if shard is None else shard.weight_sum
 
     states = trainer.states_stacked(params, consts, config)
     x_cat = torch.cat([data.x[batch_idx], data.pareto_set, x_tilde], dim=0)
@@ -146,26 +181,30 @@ def _loss_stacked(
                         data.fidelities[batch_idx], batch_w)
     kl = M.kl_all_layers(params, consts, config, states=states)
     elbo = data_b - kl * torch.sum(batch_w) / n_real
-    losses = -elbo / torch.clamp(torch.sum(batch_w), min=1.0) * n_real
+    losses = -elbo / torch.clamp(weight_sum, min=1.0) * n_real
 
     mu_top, var_top = outs[top]
     mu_p, var_p = mu_top[:, b : b + p], var_top[:, b : b + p]
     noise = M.likelihood_noise(params, consts, top)[:num_obj]
     ll = gaussian_expected_log_prob(
-        data.pareto_front.mT, mu_p[:num_obj], var_p[:num_obj], noise[:, None]
+        data.pareto_front[:, objs].mT, mu_p[:num_obj], var_p[:num_obj], noise[:, None]
     )
     front_w = data.front_mask.to(ll.dtype)
-    obj_terms = losses[:num_obj] - torch.sum(ll * front_w, dim=-1)
+    obj_terms = losses[:num_obj] - once * torch.sum(ll * front_w, dim=-1)
     theta = loss_theta_factors(
-        mu_p[num_obj:], var_p[num_obj:], data.thresholds[:, None], eps_const, data.front_mask
+        mu_p[num_obj:], var_p[num_obj:], data.thresholds[cons, None], eps_const,
+        data.front_mask,
     )
-    con_terms = losses[num_obj:] - theta
-    omega = loss_omega_factors(
-        mu_top[:num_obj, b + p :], var_top[:num_obj, b + p :],
-        mu_top[num_obj:, b + p :], var_top[num_obj:, b + p :],
-        data.thresholds, data.pareto_front, data.front_mask, eps_const,
-    )
-    return torch.sum(obj_terms) + torch.sum(con_terms) - omega
+    con_terms = losses[num_obj:] - once * theta
+    tilde = [mu_top[:num_obj, b + p:], var_top[:num_obj, b + p:],
+             mu_top[num_obj:, b + p:], var_top[num_obj:, b + p:]]
+    if shard is not None and shard.bb_group is not None:
+        whole = (data.ys_obj.shape[0],) * 2 + (data.ys_con.shape[0],) * 2
+        tilde = [sharding.gather(t, shard.bb_group, 0) if n else t
+                 for t, n in zip(tilde, whole)]
+    omega = loss_omega_factors(*tilde, data.thresholds, data.pareto_front, data.front_mask,
+                               eps_const)
+    return torch.sum(obj_terms) + torch.sum(con_terms), omega
 
 
 def conditioned_loss(
@@ -187,7 +226,9 @@ def conditioned_loss(
     normals for the rows [batch; X*; x_tilde]."""
     params, consts = _stack(obj_params, con_params, obj_consts, con_consts)
     eps = torch.cat([eps_o, eps_c], dim=0)
-    return _loss_stacked(params, consts, config, data, eps_const, batch_idx, batch_w, x_tilde, eps)
+    terms, omega = _loss_stacked(params, consts, config, data, eps_const, batch_idx, batch_w,
+                                 x_tilde, eps)
+    return terms - omega
 
 
 def draw_chunk(
@@ -228,16 +269,27 @@ class ConditionedPhase:
     """One conditioned phase: the stacked objective + constraint parameters,
     Adam, the buffers of a chunk of at most `chunk` steps, and the step that
     graphs.Steps runs. `run_chunk(draws)` runs as many steps as the chunk's
-    draws have rows and returns their losses."""
+    draws have rows and returns their losses. mesh: this rank's slices of
+    the objectives and constraints and its block of each step's rows (the
+    module docstring); the draws are the whole phase's."""
 
     def __init__(self, obj_params, con_params, obj_consts, con_consts, config, data,
                  lr: float, eps_const: float, batch_size: int, chunk: int = 1,
-                 opt_state: Optional[dict] = None):
-        self.num_obj = data.ys_obj.shape[0]
+                 opt_state: Optional[dict] = None, mesh=None):
         self.config, self.data, self.eps_const = config, data, eps_const
+        self.mesh = mesh
+        num_obj, num_con = data.ys_obj.shape[0], data.ys_con.shape[0]
+        objs, cons = trainer.model_block(mesh, num_obj), trainer.model_block(mesh, num_con)
+        self.num_obj = objs.stop - objs.start
         n, d = data.x.shape
         dev, dtype = data.x.device, data.x.dtype
-        all_p, self.consts = _stack(obj_params, con_params, obj_consts, con_consts)
+
+        def part(params, consts, sl):
+            m = trainer.select_model(M.MFDGPModel(params, consts, config), sl.start, sl.stop)
+            return m.params, m.consts
+
+        (op, oc), (cp, cc) = part(obj_params, obj_consts, objs), part(con_params, con_consts, cons)
+        all_p, self.consts = _stack(op, cp, oc, cc)
         self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), all_p)
         self.leaves = tree_leaves(self.params)
         self.masks = tree_leaves(trainer.MASK_BUILDERS["fix_cond"](self.params))
@@ -247,24 +299,49 @@ class ConditionedPhase:
         self.full = torch.arange(n, device=dev)
 
         bsz = min(batch_size, n)
-        nm = self.num_obj + data.ys_con.shape[0]
         rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
+        # this rank's models in the draws' model dim, and its columns of
+        # the rows [batch; X*; x_tilde] (its block of the batch, all of the rest)
+        self.cols = trainer.dp_block(mesh, bsz)
+        self.models = torch.cat([torch.arange(num_obj, device=dev)[objs],
+                                 num_obj + torch.arange(num_con, device=dev)[cons]])
+        self.eps_cols = torch.cat([torch.arange(bsz, device=dev)[self.cols],
+                                   torch.arange(bsz, rows, device=dev)])
+        self.shard = None
+        if mesh is not None:
+            bb = sharding.axis_size(mesh, "bb")
+            self.shard = Shard(objs, cons, 1.0 / sharding.axis_size(mesh, "dp"),
+                               mesh.get_group("bb") if bb > 1 else None, None)
         self.index = graphs.StepIndex(dev)
         self.bidx_buf = (None if bsz == n else
                          torch.zeros((chunk, bsz), dtype=torch.int64, device=dev))
         self.xt_buf = torch.zeros((chunk, NUM_OMEGA_POINTS, d), dtype=dtype, device=dev)
-        self.eps_buf = torch.zeros((chunk, nm, max(config.num_fidelities - 1, 0), rows),
+        self.eps_buf = torch.zeros((chunk, self.models.shape[0],
+                                    max(config.num_fidelities - 1, 0), self.eps_cols.shape[0]),
                                    dtype=dtype, device=dev)
         self.loss_buf = torch.zeros((chunk,), dtype=dtype, device=dev)
-        self.steps = graphs.Steps(self._step, dev, self.leaves)
+        self.steps = graphs.Steps(self._step, dev, self.leaves, *sharding.capture_rule(mesh))
 
     def _step(self) -> None:
         ix = self.index
         bidx = self.full if self.bidx_buf is None else ix.take(self.bidx_buf)
+        shard = self.shard
+        if shard is not None:
+            shard = shard._replace(weight_sum=torch.sum(self.rw[bidx]))
+            bidx = bidx[self.cols]
         self.opt.zero_grad(set_to_none=True)
-        loss = _loss_stacked(self.params, self.consts, self.config, self.data, self.eps_const,
-                             bidx, self.rw[bidx], ix.take(self.xt_buf), ix.take(self.eps_buf))
+        terms, omega = _loss_stacked(self.params, self.consts, self.config, self.data,
+                                     self.eps_const, bidx, self.rw[bidx], ix.take(self.xt_buf),
+                                     ix.take(self.eps_buf), shard)
+        loss = terms - (omega if shard is None else shard.once * omega)
         loss.backward()
+        if shard is not None:
+            # the logged loss: every rank's terms, and omega once
+            logged = (terms - shard.once * omega / sharding.axis_size(self.mesh, "bb")).detach()
+            trainer.sum_over_dp(self.mesh, [p.grad for p in self.leaves] + [logged])
+            if shard.bb_group is not None:
+                sharding.all_reduce(logged, shard.bb_group)
+            loss = logged
         for p, m in zip(self.leaves, self.masks):
             if p.grad is not None and m != 1.0:
                 p.grad.mul_(m)
@@ -277,15 +354,22 @@ class ConditionedPhase:
         if self.bidx_buf is not None:
             self.bidx_buf[:steps].copy_(draws.batch_idx)
         self.xt_buf[:steps].copy_(draws.x_tilde)
-        self.eps_buf[:steps].copy_(draws.eps)
+        eps = draws.eps
+        if self.shard is not None:
+            eps = eps[:, self.models][..., self.eps_cols]
+        self.eps_buf[:steps].copy_(eps)
         self.index.reset()
         self.steps.run(steps)
         return self.loss_buf[:steps].clone()
 
     def result(self) -> Tuple[M.MFDGPParams, M.MFDGPParams]:
+        """The whole objective and constraint stacks (gathered over 'bb')."""
         params = tree_map(lambda t: t.detach(), self.params)
-        return (tree_map(lambda t: t[: self.num_obj], params),
-                tree_map(lambda t: t[self.num_obj:], params))
+        op = tree_map(lambda t: t[: self.num_obj], params)
+        cp = tree_map(lambda t: t[self.num_obj:], params)
+        if self.data.ys_con.shape[0] == 0:
+            return trainer.gather_bb(self.mesh, op), cp
+        return trainer.gather_bb(self.mesh, op), trainer.gather_bb(self.mesh, cp)
 
     def close(self) -> None:
         self.steps.close()
@@ -311,6 +395,7 @@ def train_conditioned_carry(
     batch_size: int,
     opt_state: Optional[dict] = None,
     draws: Optional[Sequence[StepDraws]] = None,
+    mesh=None,
 ):
     """Joint conditioned Adam steps as one chunk with an explicit
     optimizer-state carry: opt_state None starts fresh, passing it back
@@ -319,9 +404,10 @@ def train_conditioned_carry(
 
     Every model sees the same per-step minibatch (identical to the
     reference when batch_size >= N, the examples' default). draws: one
-    StepDraws per step (default: drawn from `generator`)."""
+    StepDraws per step (default: drawn from `generator`). mesh: over
+    ('bb', 'dp'); opt_state is then this rank's."""
     phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
-                             eps_const, batch_size, max(num_iters, 1), opt_state)
+                             eps_const, batch_size, max(num_iters, 1), opt_state, mesh)
     try:
         losses = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
         if num_iters:
@@ -337,11 +423,12 @@ def train_conditioned(
     obj_params, con_params, obj_consts, con_consts, config, data, generator,
     num_iters: int, lr: float, eps_const: float, batch_size: int,
     draws: Optional[Sequence[StepDraws]] = None,
+    mesh=None,
 ):
     """A fresh conditioned phase as one chunk: (obj_params, con_params, losses)."""
     op, cp, _, losses = train_conditioned_carry(
         obj_params, con_params, obj_consts, con_consts, config, data, generator,
-        num_iters, lr, eps_const, batch_size, draws=draws,
+        num_iters, lr, eps_const, batch_size, draws=draws, mesh=mesh,
     )
     return op, cp, losses
 
@@ -366,17 +453,19 @@ def train_conditioned_chunked(
     num_iters: int, lr: float, eps_const: float, batch_size: int,
     draws: Optional[Sequence[StepDraws]] = None,
     stats: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[M.MFDGPParams, M.MFDGPParams, torch.Tensor]:
     """The fitter's entry point: checks the shared inducing inputs, then runs
     the phase as bounded chunks (trainer.chunk_sizes at the padded row
     count) with the Adam state carried across them and heartbeat
     `cond:chunk{ci}` after each. Each chunk's draws are made before it runs
     (or taken from `draws`, one StepDraws per step of the phase). `stats`,
-    when given, receives the chunks, capture seconds, replays and steps."""
+    when given, receives the chunks, capture seconds, replays, steps and
+    whether the phase was captured (and why). mesh: over ('bb', 'dp')."""
     _check_shared_inducing(obj_consts, con_consts)
     sizes = trainer.chunk_sizes(num_iters, data.x.shape[0])
     phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
-                             eps_const, batch_size, max(sizes, default=1))
+                             eps_const, batch_size, max(sizes, default=1), mesh=mesh)
     try:
         losses, start = [], 0
         for ci, size in enumerate(sizes):
@@ -385,8 +474,7 @@ def train_conditioned_chunked(
             start += size
             heartbeat.beat(f"cond:chunk{ci}")
         if stats is not None:
-            stats.update(chunks=len(sizes), capture_seconds=phase.steps.capture_seconds,
-                         replays=phase.steps.replays, steps=phase.steps.steps)
+            stats.update(trainer.steps_stats(phase.steps), chunks=len(sizes))
         op, cp = phase.result()
         empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
         return op, cp, torch.cat(losses) if losses else empty

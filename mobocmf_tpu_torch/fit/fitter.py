@@ -50,13 +50,16 @@ class BlackBoxMFDGPFitter:
         polish: str = "slsqp",
         device: DeviceLike = None,
         dtype: Optional[torch.dtype] = None,
+        mesh=None,
     ):
         """Constructor defaults of the JAX fitter (fitter.py:39-58).
         pad_data: bucket the training rows (fit/bucketing.py). polish: the
         MOOP's polish of each objective's optimum, "slsqp" (host scipy),
         "device" (batched penalty L-BFGS on the device) or "none". device:
         `cuda` unless named; dtype: float32 unless named (the CPU parity
-        tests pass float64)."""
+        tests pass float64). mesh: passed to the MOOP only, which shards its
+        grid evaluations over 'dp' (parallel/sharding.py), as in the JAX
+        fitter; every rank of the mesh runs the fitter."""
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.num_obj = 0
@@ -89,6 +92,7 @@ class BlackBoxMFDGPFitter:
         self.whitened = whitened
         self.whitened_init = whitened_init
         self.polish = polish
+        self.mesh = mesh
         # host draws (acq_eps at init) and device draws (training eps, RFF
         # frequencies and phases, MOOP grids, conditioned draws)
         self.host_generator = torch.Generator().manual_seed(seed)
@@ -188,6 +192,7 @@ class BlackBoxMFDGPFitter:
             chol_launches=chol.launches - launches0,
             escalations=chol.escalations() - esc0,
             capture_seconds=stats["capture_seconds"], replays=stats["replays"],
+            captured=stats["captured"], capture_reason=stats["capture_reason"],
         )
 
     def _train_group(self, entries, label):
@@ -282,6 +287,7 @@ class BlackBoxMFDGPFitter:
                 pareto_set_size=self.pareto_set_size,
                 feasible_values=-1.0 * np.asarray(self.thresholds_cons),
                 polish=self.polish,
+                mesh=self.mesh,
             )
             res = self._pareto_attempt(moop, False)
             if res is not None:

@@ -19,11 +19,18 @@ the draws and the logs are the caller's one code path; only how a step is
 issued differs. A capture or a replay that fails raises: there is no
 eager path on the card to fall back to.
 
+A step that runs collectives over gloo (a mesh of ranks that share one
+card) cannot be captured: gloo synchronizes with the host. Such a phase
+is made uncaptured up front (`capture=False`, from
+parallel/sharding.py::capture_rule, with the reason kept in
+`capture_reason`), and every step then runs eagerly on the card.
+
 Kernel counters: K1's wrapper called while its stream is capturing adds
 to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
-launches of every replay to `launches`. (K2 runs only without gradients,
-never inside a captured step.) `close()` frees the graph and its memory
-pool at the end of the phase.
+launches of every replay to `launches`, and likewise the collectives of
+every replay (parallel/sharding.py::captured) to `sharding.calls`. (K2
+runs only without gradients, never inside a captured step.) `close()`
+frees the graph and its memory pool at the end of the phase.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from mobocmf_tpu_torch.linalg import chol
+from mobocmf_tpu_torch.parallel import sharding
 
 # eager steps before the capture: the first builds and loads K1, allocates
 # the Adam state and the cuBLAS workspace; the second runs on warm caches
@@ -89,27 +97,32 @@ class StepIndex:
 
 class Steps:
     """Runs a step closure n times per `run(n)`: eagerly on the CPU, from
-    one captured CUDA graph on the card. `capture_seconds` is the time the
-    capture took (with its synchronizations), `replays` the graph's
-    replays, `steps` every step run."""
+    one captured CUDA graph on the card (eagerly there too when `capture`
+    is False; `capture_reason` says why either way). `capture_seconds` is
+    the time the capture took (with its synchronizations), `replays` the
+    graph's replays, `steps` every step run."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
-                 leaves: Optional[Iterable[torch.Tensor]] = None):
+                 leaves: Optional[Iterable[torch.Tensor]] = None, capture: bool = True,
+                 capture_reason: str = "no mesh"):
         self.step = step
         self.device = torch.device(device)
         self.leaves = list(leaves or ())
+        self.capture = capture
+        self.capture_reason = capture_reason
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_seconds = 0.0
         self.replays = 0
         self.steps = 0
         self._warm = 0
         self._k1_per_replay = 0
+        self._collectives_per_replay = 0
 
     def run(self, n: int) -> None:
         if n <= 0:
             return
         self.steps += n
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             for _ in range(n):
                 self.step()
             return
@@ -125,6 +138,7 @@ class Steps:
             self.graph.replay()
         self.replays += n - done
         chol.launches += self._k1_per_replay * (n - done)
+        sharding.calls += self._collectives_per_replay * (n - done)
 
     def _warm_up(self, n: int) -> None:
         self._warm += n
@@ -139,7 +153,7 @@ class Steps:
     def _capture(self) -> None:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        before = chol.captured
+        before = (chol.captured, sharding.captured)
         graph = torch.cuda.CUDAGraph()
         # the step's first backward allocates its gradients from the graph's
         # pool (PyTorch's whole-network capture)
@@ -149,7 +163,8 @@ class Steps:
             self.step()
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0
-        self._k1_per_replay = chol.captured - before
+        self._k1_per_replay = chol.captured - before[0]
+        self._collectives_per_replay = sharding.captured - before[1]
         self.graph = graph
 
     def close(self) -> None:

@@ -36,6 +36,7 @@ import torch
 from mobocmf_tpu_torch.fit import graphs
 from mobocmf_tpu_torch.mlls.elbo import elbo_terms
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
@@ -129,10 +130,13 @@ def unstack_params(params: M.MFDGPParams, num_models: int) -> List[M.MFDGPParams
     return [tree_map(lambda a, i=i: a[i : i + 1], params) for i in range(num_models)]
 
 
-def select_model(model: M.MFDGPModel, i: int) -> M.MFDGPModel:
-    """Blackbox i of a stacked model, as a B = 1 model (views, no copies)."""
+def select_model(model: M.MFDGPModel, i: int, stop: Optional[int] = None) -> M.MFDGPModel:
+    """Blackbox i of a stacked model, as a B = 1 model, or blackboxes
+    [i, stop) (views, no copies)."""
+    stop = i + 1 if stop is None else stop
+
     def take(a):
-        return a[i : i + 1]
+        return a[i:stop]
 
     c = model.consts
     consts = c._replace(
@@ -149,6 +153,37 @@ def select_model(model: M.MFDGPModel, i: int) -> M.MFDGPModel:
 class EpochLog(NamedTuple):
     loss: torch.Tensor  # (B, E) summed negative ELBO over the epoch's batches
     kl: torch.Tensor  # (B, E)
+
+
+def model_block(mesh, num_models: int) -> slice:
+    """This rank's contiguous slice of `num_models` stacked models over
+    'bb' (all of them without a mesh)."""
+    k = sharding.axis_size(mesh, "bb")
+    if num_models % k:
+        raise ValueError(f"{num_models} stacked models do not divide over bb={k}: a mesh's "
+                         "'bb' axis must divide the blackbox stack")
+    return sharding.block(num_models, k, sharding.axis_rank(mesh, "bb"))
+
+
+def dp_block(mesh, n: int) -> slice:
+    """This rank's contiguous block of n rows over 'dp' (all without a mesh)."""
+    return sharding.block(n, sharding.axis_size(mesh, "dp"), sharding.axis_rank(mesh, "dp"))
+
+
+def sum_over_dp(mesh, tensors: List[torch.Tensor]) -> None:
+    """Sum each tensor over the mesh's 'dp' axis in place, in one all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    sharding.all_reduce(flat, mesh.get_group("dp"))
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def gather_bb(mesh, tree):
+    """Every 'bb' rank's slice of a stacked tree, concatenated on dim 0."""
+    if sharding.axis_size(mesh, "bb") == 1:
+        return tree
+    grp = mesh.get_group("bb")
+    return tree_map(lambda t: sharding.all_gather(t, grp, 0), tree)
 
 
 def _batch_plan(num_data: int, batch_size: int) -> Tuple[int, int]:
@@ -195,22 +230,33 @@ class TrainPhase:
     """One phase on the stacked model: its parameters, Adam, the buffers of
     a chunk of at most `chunk` epochs, and the epoch step that
     graphs.Steps runs (one full-batch step, or one epoch of minibatch
-    steps). `run_chunk(eps, perms)` runs as many epochs as eps has rows."""
+    steps). `run_chunk(eps, perms)` runs as many epochs as eps has rows
+    (the draws of the whole stack; over a mesh this rank takes its models
+    and rows)."""
 
     def __init__(self, model: M.MFDGPModel, x, ys, fidelities, lr: float, mask_kind: str,
                  batch_size: int, row_weights=None, num_data=None, chunk: int = 1,
-                 opt_state: Optional[dict] = None):
-        self.consts, self.config = model.consts, model.config
-        self.x, self.ys, self.fid = x, ys, fidelities.reshape(-1)
+                 opt_state: Optional[dict] = None, mesh=None):
         n = x.shape[0]
-        self.num_models = ys.shape[0]
+        if row_weights is None:
+            row_weights = torch.ones((n,), dtype=x.dtype, device=x.device)
+        self.nd = torch.sum(row_weights) if num_data is None else num_data
+        self.mesh = mesh
+        self.total_models = ys.shape[0]
+        self.models = model_block(mesh, self.total_models)
+        model = select_model(model, self.models.start, self.models.stop)
+        self.consts, self.config = model.consts, model.config
+        self.x, self.ys, self.fid = x, ys[self.models], fidelities.reshape(-1)
+        self.num_models = self.ys.shape[0]
         self.bsz, self.num_batches = _batch_plan(n, batch_size)
         padded = self.bsz * self.num_batches
         nf = max(self.config.num_fidelities - 1, 0)
-        if row_weights is None:
-            row_weights = torch.ones((n,), dtype=x.dtype, device=x.device)
         self.row_weights = row_weights
-        self.nd = torch.sum(row_weights) if num_data is None else num_data
+        # this rank's rows of a full-batch step, or columns of each minibatch
+        self.rows = dp_block(mesh, n if self.num_batches == 1 else self.bsz)
+        r = self.rows
+        self.x_rows, self.ys_rows = x[r], self.ys[:, r]
+        self.fid_rows, self.w_rows = self.fid[r], row_weights[r]
 
         self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), model.params)
         self.leaves = tree_leaves(self.params)
@@ -225,7 +271,9 @@ class TrainPhase:
                          torch.zeros((chunk, nb, n), dtype=torch.int64, device=dev))
         self.loss_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
         self.kl_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
-        self.steps = graphs.Steps(self._epoch, dev, self.leaves)
+        collectives = mesh if mesh is not None else getattr(self.consts, "inducing", None)
+        self.steps = graphs.Steps(self._epoch, dev, self.leaves,
+                                  *sharding.capture_rule(collectives))
 
     def _update(self, xb, yb, fb, wb, eb):
         self.opt.zero_grad(set_to_none=True)
@@ -233,17 +281,21 @@ class TrainPhase:
                               weights=wb)
         loss = -elbo
         torch.sum(loss).backward()
+        loss, kl = loss.detach(), kl.detach()
+        if self.mesh is not None:
+            sum_over_dp(self.mesh, [p.grad for p in self.leaves] + [loss, kl])
         for p, m in zip(self.leaves, self.masks):
             if p.grad is not None and m != 1.0:
                 p.grad.mul_(m)
         self.opt.step()
-        return loss.detach(), kl.detach()
+        return loss, kl
 
     def _epoch(self) -> None:
         x, ix = self.x, self.index
         eps = ix.take(self.eps_buf)
         if self.num_batches == 1:
-            loss, kl = self._update(x, self.ys, self.fid, self.row_weights, eps)
+            loss, kl = self._update(self.x_rows, self.ys_rows, self.fid_rows, self.w_rows,
+                                    eps[..., self.rows])
         else:
             nb, n, bsz = self.num_models, x.shape[0], self.bsz
             perm = ix.take(self.perm_buf)
@@ -253,10 +305,11 @@ class TrainPhase:
             w_all = w_all.reshape(nb, -1, bsz)
             e_all = eps.reshape(nb, eps.shape[1], self.num_batches, bsz)
             loss = kl = 0.0
+            r = self.rows
             for i in range(self.num_batches):
-                bidx = idx[:, i]
+                bidx = idx[:, i, r]
                 lb, kb = self._update(x[bidx], torch.gather(self.ys, 1, bidx), self.fid[bidx],
-                                      w_all[:, i], e_all[:, :, i])
+                                      w_all[:, i, r], e_all[:, :, i, r])
                 loss, kl = loss + lb, kl + kb
         ix.put(self.loss_buf, 1, loss)
         ix.put(self.kl_buf, 1, kl)
@@ -264,12 +317,13 @@ class TrainPhase:
 
     def run_chunk(self, eps: torch.Tensor, perms: Optional[torch.Tensor]) -> EpochLog:
         e = eps.shape[0]
-        self.eps_buf[:e].copy_(eps)
+        self.eps_buf[:e].copy_(eps[:, self.models])
         if self.perm_buf is not None:
-            self.perm_buf[:e].copy_(perms)
+            self.perm_buf[:e].copy_(perms[:, self.models])
         self.index.reset()
         self.steps.run(e)
-        return EpochLog(loss=self.loss_buf[:, :e].clone(), kl=self.kl_buf[:, :e].clone())
+        return gather_bb(self.mesh, EpochLog(loss=self.loss_buf[:, :e].clone(),
+                                             kl=self.kl_buf[:, :e].clone()))
 
     def check_finite(self, where: str) -> None:
         finite = torch.stack([torch.isfinite(t).all() for t in self.leaves]).all()
@@ -280,10 +334,17 @@ class TrainPhase:
             )
 
     def result(self) -> M.MFDGPParams:
-        return tree_map(lambda t: t.detach(), self.params)
+        """The trained parameters of the whole stack (gathered over 'bb')."""
+        return gather_bb(self.mesh, tree_map(lambda t: t.detach(), self.params))
 
     def close(self) -> None:
         self.steps.close()
+
+
+def steps_stats(steps: graphs.Steps) -> dict:
+    """A phase's capture record: seconds, replays, steps, captured and why."""
+    return dict(capture_seconds=steps.capture_seconds, replays=steps.replays, steps=steps.steps,
+                captured=steps.capture, capture_reason=steps.capture_reason)
 
 
 def _phase_draws(generator, phase: TrainPhase, start, count, eps, perms):
@@ -291,7 +352,7 @@ def _phase_draws(generator, phase: TrainPhase, start, count, eps, perms):
     (eps, perms) where given, else a fresh chunk from `generator`."""
     if eps is None:
         x = phase.x
-        return draw_chunk(generator, phase.config, count, phase.num_models, x.shape[0],
+        return draw_chunk(generator, phase.config, count, phase.total_models, x.shape[0],
                           phase.bsz, x.dtype, x.device)
     return eps[start:start + count], None if perms is None else perms[start:start + count]
 
@@ -316,6 +377,7 @@ def train_phase_stacked_carry(
     eps: Optional[torch.Tensor] = None,
     perms: Optional[torch.Tensor] = None,
     opt_state: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[M.MFDGPParams, dict, EpochLog]:
     """`num_epochs` epochs of Adam on the stacked model as one chunk, with an
     explicit optimizer-state carry (opt_state None starts fresh); returns
@@ -327,9 +389,11 @@ def train_phase_stacked_carry(
     precomputed propagation normals, (E, B, F-1, N) full batch or
     (E, B, F-1, num_batches*batch) minibatch; perms: optional (E, B, N)
     minibatch permutations. What is not given is drawn from `generator`.
+    mesh: train over ('bb', 'dp') (the module docstring); opt_state is
+    then this rank's slice of the models.
     """
     phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
-                       num_data, max(num_epochs, 1), opt_state)
+                       num_data, max(num_epochs, 1), opt_state, mesh)
     try:
         log = _empty_log(ys.shape[0], x)
         if num_epochs:
@@ -341,11 +405,11 @@ def train_phase_stacked_carry(
 
 def train_phase_stacked(model, x, ys, fidelities, num_epochs: int, lr: float, mask_kind: str,
                         batch_size: int, row_weights=None, num_data=None, generator=None,
-                        eps=None, perms=None) -> Tuple[M.MFDGPParams, EpochLog]:
+                        eps=None, perms=None, mesh=None) -> Tuple[M.MFDGPParams, EpochLog]:
     """A fresh phase as one chunk: (params, logs)."""
     params, _, logs = train_phase_stacked_carry(
         model, x, ys, fidelities, num_epochs, lr, mask_kind, batch_size, row_weights, num_data,
-        generator, eps, perms,
+        generator, eps, perms, mesh=mesh,
     )
     return params, logs
 
@@ -366,6 +430,7 @@ def train_phase_stacked_chunked(
     perms: Optional[torch.Tensor] = None,
     stats: Optional[dict] = None,
     label: str = "train",
+    mesh=None,
 ) -> Tuple[M.MFDGPParams, EpochLog]:
     """A phase as bounded chunks (`chunk_sizes`) with the Adam state carried
     across them (the fitter's entry point; arguments as
@@ -373,10 +438,11 @@ def train_phase_stacked_chunked(
     chunk's draws are made before it runs; after it, heartbeat
     `train:chunk{ci}`, then the parameters must be finite (RuntimeError
     naming `label` otherwise). `stats`, when given, receives the chunks,
-    the capture seconds, the graph replays and the steps."""
+    the capture seconds, the graph replays, the steps and whether the
+    phase was captured (and why). mesh: train over ('bb', 'dp')."""
     sizes = chunk_sizes(num_epochs, x.shape[0])
     phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
-                       num_data, max(sizes, default=1))
+                       num_data, max(sizes, default=1), mesh=mesh)
     try:
         logs, start = [], 0
         for ci, size in enumerate(sizes):
@@ -385,11 +451,39 @@ def train_phase_stacked_chunked(
             heartbeat.beat(f"train:chunk{ci}")
             phase.check_finite(f"[{label}] chunk {ci}")
         if stats is not None:
-            stats.update(chunks=len(sizes), capture_seconds=phase.steps.capture_seconds,
-                         replays=phase.steps.replays, steps=phase.steps.steps)
+            stats.update(steps_stats(phase.steps), chunks=len(sizes))
         if not logs:
             return phase.result(), _empty_log(ys.shape[0], x)
         return phase.result(), EpochLog(loss=torch.cat([l.loss for l in logs], dim=1),
                                         kl=torch.cat([l.kl for l in logs], dim=1))
     finally:
         phase.close()
+
+
+def train_phase(model: M.MFDGPModel, x, y, fidelities, num_epochs: int, lr: float,
+                mask_kind: str, batch_size: int, row_weights=None, num_data=None,
+                generator=None, eps=None, perms=None) -> Tuple[M.MFDGPParams, EpochLog]:
+    """One phase of a single (B = 1) model, y (N,): (params, logs (E,)), the
+    JAX package's train_phase. eps (E, F-1, N or the padded minibatch rows)
+    and perms (E, N) are the phase's draws when given."""
+    params, logs = train_phase_stacked(
+        model, x, y.reshape(1, -1), fidelities, num_epochs, lr, mask_kind, batch_size,
+        row_weights, num_data, generator, None if eps is None else eps[:, None],
+        None if perms is None else perms[:, None])
+    return params, EpochLog(loss=logs.loss[0], kl=logs.kl[0])
+
+
+def train_mfdgp_two_phase(model: M.MFDGPModel, x, y, fidelities, generator, num_epochs_1: int,
+                          num_epochs_2: int, lr_1: float, lr_2: float, batch_size: int,
+                          draws=None) -> Tuple[M.MFDGPModel, EpochLog, EpochLog]:
+    """The reference's single-model schedule (blackbox_mfdgp_fitter.py:154-
+    176): variational hypers fixed for num_epochs_1 at lr_1, then all free
+    for num_epochs_2 at lr_2. draws: ((eps, perms) of phase 1, of phase 2)
+    for train_phase, else drawn from `generator`."""
+    draws = draws or ((None, None), (None, None))
+    p, log1 = train_phase(model, x, y, fidelities, num_epochs_1, lr_1, "fix_variational_hypers",
+                          batch_size, generator=generator, eps=draws[0][0], perms=draws[0][1])
+    model = model._replace(params=p)
+    p, log2 = train_phase(model, x, y, fidelities, num_epochs_2, lr_2, "all_free", batch_size,
+                          generator=generator, eps=draws[1][0], perms=draws[1][1])
+    return model._replace(params=p), log1, log2

@@ -31,11 +31,20 @@ recommendation pass. Training, conditioned training and the L-BFGS loop
 keep predict_diag_state. Layer 0 sees x tiled 25x in the acquisition
 predictive; either route computes it on the untiled points and repeats
 its output.
+
+Inducing sharding (parallel/sharding.py::shard_inducing): consts with an
+`inducing` group hold this rank's rows of each layer's z_x, and params its
+rows of the variational means and Cholesky factors. The layer states then
+compute the Gram row blocks Kzz[rows, :] and Kzx[rows, :] locally and
+gather them, gather the variational rows, and factor the whole Kzz;
+everything after the gathers runs whole on every rank, layer 0's K2
+predictive included.
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -51,6 +60,7 @@ from mobocmf_tpu_torch.kernels import deep_mf, rbf
 from mobocmf_tpu_torch.linalg.fused_svgp import fused_rbf_svgp_forward
 from mobocmf_tpu_torch.linalg.ops import ladder_jitter, safe_cholesky_level
 from mobocmf_tpu_torch.models import svgp
+from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util.tree import tree_map
 
 
@@ -345,6 +355,10 @@ class LayerState(NamedTuple):
     w_ls: torch.Tensor  # (B, M, M)
     level: torch.Tensor  # (B,) jitter-ladder rung lk ended on (linalg/ops.py)
     lk_inv: Optional[torch.Tensor] = None  # explicit L^{-1}, acquisition loops only
+    # inducing sharding: the group the rows of z are split over (z is whole
+    # here) and the gathered variational parameters
+    inducing: Optional[object] = None
+    variational: Optional[svgp.SVGPVariational] = None
 
 
 def compute_layer_states(
@@ -353,13 +367,20 @@ def compute_layer_states(
     """Resolve the dynamic inducing chain once per forward: Z_0 = z_x,
     Z_ell = [z_x, mu_{ell-1}(Z_{ell-1})], with the predictive mean at the
     inducing inputs m - jitter * (Kzz + jitter I)^{-1} m. One K1 launch per
-    layer factorizes every blackbox's Kzz."""
+    layer factorizes every blackbox's Kzz. Inducing-sharded consts (the
+    module docstring) compute the Gram's row blocks and gather them."""
     states: List[LayerState] = []
     chain_mean = None
+    group = getattr(consts, "inducing", None)
     for ell in range(config.num_fidelities):
         gram, _ = _layer_fns(ell, config.only_hf)
         lp = params.layers[ell]
         z_x = consts.z_x[ell]
+        var = lp.variational
+        if group is not None:
+            z_x = sharding.all_gather(z_x, group, 0)
+            gram = functools.partial(sharding.rows_gram, gram, grp=group)
+            var = sharding.gather_variational(var, group)
         if ell == 0:
             z = z_x
         elif config.only_hf:
@@ -368,16 +389,17 @@ def compute_layer_states(
             z_b = z_x.expand(chain_mean.shape[:-1] + z_x.shape)
             z = torch.cat([z_b, chain_mean.unsqueeze(-1)], dim=-1)
         lk, level = safe_cholesky_level(gram(lp.kernel, z, z), config.jitter)
-        w_mean, w_ls = svgp.solve_variational(lp.variational, lk, config.whitened)
+        w_mean, w_ls = svgp.solve_variational(var, lk, config.whitened)
         lk_inv = None
         if with_inv:
             eye = torch.eye(lk.shape[-1], dtype=lk.dtype, device=lk.device)
             lk_inv = torch.linalg.solve_triangular(lk, eye, upper=False)
         states.append(
-            LayerState(z=z, lk=lk, w_mean=w_mean, w_ls=w_ls, level=level, lk_inv=lk_inv)
+            LayerState(z=z, lk=lk, w_mean=w_mean, w_ls=w_ls, level=level, lk_inv=lk_inv,
+                       inducing=group, variational=None if group is None else var)
         )
         if ell + 1 < config.num_fidelities and not config.only_hf:
-            m = lp.variational.mean
+            m = var.mean
             if config.whitened:
                 # mu(Z) = L m_w - jitter * L^{-T} m_w
                 lt_inv_m = torch.linalg.solve_triangular(lk.mT, m.unsqueeze(-1), upper=True)
@@ -404,7 +426,7 @@ def _layer0_k2(lp: MFDGPLayerParams, st: LayerState, config: MFDGPConfig, x: tor
     Gram's mean diagonal, the outputscale."""
     ls, os_ = rbf.scale_rbf_constrained(lp.kernel)
     jitter = ladder_jitter(config.jitter, st.level, os_)
-    var = lp.variational
+    var = lp.variational if st.variational is None else st.variational
     return fused_rbf_svgp_forward(st.z, x, var.mean, torch.tril(var.chol_raw), ls, os_, jitter)
 
 
@@ -434,6 +456,8 @@ def forward(
         gram, diag = _layer_fns(ell, config.only_hf)
         lp = params.layers[ell]
         st = states[ell]
+        if st.inducing is not None:
+            gram = functools.partial(sharding.rows_gram, gram, grp=st.inducing)
         if ell == 0:
             x0 = x[..., ::tile, :]
             if uses_k2(config, x):
@@ -470,9 +494,8 @@ def kl_all_layers(
     total = 0.0
     for ell in range(config.num_fidelities):
         st = states[ell]
-        total = total + svgp.kl_state(
-            params.layers[ell].variational, st.lk, st.w_mean, st.w_ls, config.whitened
-        )
+        var = params.layers[ell].variational if st.variational is None else st.variational
+        total = total + svgp.kl_state(var, st.lk, st.w_mean, st.w_ls, config.whitened)
     return total
 
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from mobocmf_tpu_torch.core.config import MIN_VARIANCE
-from mobocmf_tpu_torch.linalg.ops import logdet_from_chol, tri_solve_lower
+from mobocmf_tpu_torch.linalg.ops import logdet_from_chol, safe_cholesky, tri_solve_lower
 
 KernelGram = Callable[[Dict, torch.Tensor, torch.Tensor], torch.Tensor]
 KernelDiag = Callable[[Dict, torch.Tensor], torch.Tensor]
@@ -90,6 +90,25 @@ def predict_diag_state(
     b = w_ls.mT @ w
     v2 = torch.sum(b * b, dim=-2)
     return mu, torch.clamp(kxx - v1 + v2, min=MIN_VARIANCE)
+
+
+def predict_mean(
+    kernel_gram: KernelGram,
+    kparams: Dict,
+    var: SVGPVariational,
+    z: torch.Tensor,
+    x: torch.Tensor,
+    jitter: float,
+    lk: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Predictive mean only, unwhitened (the dynamic inducing-point chain's
+    quantity), and the factor lk = chol(Kzz + jitter I) it used (K1,
+    computed when not given): mu = (L^{-1} Kzx)^T L^{-1} m."""
+    if lk is None:
+        lk = safe_cholesky(kernel_gram(kparams, z, z), jitter)
+    w = tri_solve_lower(lk, kernel_gram(kparams, z, x))
+    lm = tri_solve_lower(lk, var.mean.unsqueeze(-1))
+    return (w.mT @ lm)[..., 0], lk
 
 
 def kl_state(

@@ -14,6 +14,13 @@ removed. Polish "device" keeps the polish on the samples' device too: a
 multi-start L-BFGS on a quadratic penalty from the best feasible grid
 points, all starts as lanes of one batched search, with the same accept
 rule as SLSQP.
+
+Over a mesh (`mesh=`, parallel/sharding.py) every grid evaluation is
+sharded over 'dp' (`sharding.sharded_grid_eval`). The samples and the
+random grid are the mesh's first rank's (broadcast), and the polish, the
+front and the summary run there and the solution is broadcast: scipy's
+SLSQP and an f32 polish are not bitwise across processes, so recomputing
+them on every rank would not give one answer.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from mobocmf_tpu_torch.acquisition.optimize import _logit, batched_lbfgs
+from mobocmf_tpu_torch.parallel import sharding
 
 
 class NotFeasiblePoints(ValueError):
@@ -136,6 +144,18 @@ def _slsqp_fused_eval(obj: SampledFunction, cons: Sequence[SampledFunction], x, 
     return float(vals[0]), jac[0], vals[1:], jac[1:]
 
 
+def _broadcast_solution(mesh, solution: Optional[ParetoSolution],
+                        like: torch.Tensor) -> Optional[ParetoSolution]:
+    """The mesh's first rank's solution (or None) on every rank, on `like`'s device."""
+    host = None if solution is None else tuple(
+        t.cpu() if isinstance(t, torch.Tensor) else t for t in solution)
+    host = sharding.broadcast_object(mesh, host)
+    if host is None:
+        return None
+    return ParetoSolution(*(t.to(like.device) if isinstance(t, torch.Tensor) else t
+                            for t in host))
+
+
 class MOOP:
     """Constrained MOO over sampled functions on [0, 1]^d.
 
@@ -143,7 +163,8 @@ class MOOP:
     f(x: (N, d) tensor) -> (N,). `grid_size` and `feasible_values` follow
     the reference's conventions (the fitter passes grid_size =
     opt_grid_size * d and feasible_values = -thresholds,
-    blackbox_mfdgp_fitter.py:197-202)."""
+    blackbox_mfdgp_fitter.py:197-202). mesh: shard the grid evaluations
+    over its 'dp' axis (the module docstring)."""
 
     def __init__(
         self,
@@ -156,6 +177,7 @@ class MOOP:
         min_distance_between_points: float = 1e-6,
         use_slsqp_polish: bool = True,
         polish: str = "slsqp",
+        mesh=None,
     ):
         if polish not in ("slsqp", "device", "none"):
             raise ValueError(f"polish must be 'slsqp', 'device' or 'none', got {polish!r}")
@@ -169,6 +191,7 @@ class MOOP:
             feasible_values = np.ones(max(len(self.samples_cons), 1)) * feasible_values
         self.feasible_values = np.asarray(feasible_values, dtype=float)
         self.polish = polish if use_slsqp_polish else "none"
+        self.mesh = mesh
 
         def wrap(f):
             if isinstance(f, SampledFunction):
@@ -293,8 +316,7 @@ class MOOP:
     # -- main entry ------------------------------------------------------------
 
     def _grid_evals(self, fns: List[SampledFunction], grid_t: torch.Tensor) -> np.ndarray:
-        with torch.no_grad():
-            return torch.stack([f(grid_t) for f in fns]).cpu().numpy().astype(np.float64)
+        return sharding.sharded_grid_eval(fns, grid_t, self.mesh)
 
     def compute_pareto_solution_from_samples(
         self,
@@ -313,7 +335,8 @@ class MOOP:
         (len(inputs),) mask; padded training rows keep their grid slot but
         are excluded from feasibility, polish starts and the front. like: a
         tensor whose dtype and device the evaluations use (default: the
-        generator's device in float64)."""
+        generator's device in float64). Over a mesh every rank calls this
+        and gets the first rank's answer."""
         inputs = np.asarray(inputs, dtype=float)
         if like is None:
             dev = generator.device if generator is not None else torch.device("cpu")
@@ -324,6 +347,11 @@ class MOOP:
                 dtype=torch.float64, device=like.device,
             ).cpu().numpy()
         rand = np.asarray(grid, dtype=float)
+        if self.mesh is not None:
+            rand = sharding.broadcast_object(self.mesh, rand)
+            self._objs, self._cons = (
+                [SampledFunction(f.fn, sharding.replicate(self.mesh, f.tree)) for f in fns]
+                for fns in (self._objs, self._cons))
         grid = np.concatenate([rand, inputs], axis=0)
         grid_t = torch.as_tensor(grid, dtype=like.dtype, device=like.device)
         grid_valid = np.ones(grid.shape[0], dtype=bool)
@@ -348,7 +376,19 @@ class MOOP:
         feasible = feasible & np.isfinite(obj_evals).all(axis=0)
         if not feasible.any():
             return None
+        solution = None
+        if sharding.is_root(self.mesh):
+            solution = self._solve(grid, grid_t, obj_evals, feasible, like)
+        if self.mesh is not None:
+            solution = _broadcast_solution(self.mesh, solution, like)
+        if solution is None:
+            return None
+        return solution, self.samples_objs, self.samples_cons
 
+    def _solve(self, grid: np.ndarray, grid_t: torch.Tensor, obj_evals: np.ndarray,
+               feasible: np.ndarray, like: torch.Tensor) -> Optional[ParetoSolution]:
+        """The polish, the front and its summary (the mesh's first rank
+        only); None when no valid finite point remains."""
         # per-objective polish; accepted optima fill a block of one row per
         # objective (rejected slots masked infeasible)
         if self.polish != "none":
@@ -369,7 +409,8 @@ class MOOP:
             extra_t = torch.as_tensor(extra, dtype=like.dtype, device=like.device)
             grid = np.concatenate([grid, extra], axis=0)
             grid_t = torch.cat([grid_t, extra_t])
-            obj_evals = np.concatenate([obj_evals, self._grid_evals(self._objs, extra_t)], axis=1)
+            extra_evals = sharding.sharded_grid_eval(self._objs, extra_t, None)
+            obj_evals = np.concatenate([obj_evals, extra_evals], axis=1)
             feasible = np.concatenate([feasible, extra_valid])
 
         pts = torch.as_tensor(obj_evals.T, dtype=like.dtype, device=like.device)
@@ -384,10 +425,9 @@ class MOOP:
         finite = bool(torch.isfinite(torch.where(out_mask[:, None], pfront, 0.0)).all())
         if num_valid == 0 or not finite:
             return None
-        solution = ParetoSolution(
+        return ParetoSolution(
             pareto_set=pset, pareto_front=pfront, mask=out_mask, num_valid=num_valid
         )
-        return solution, self.samples_objs, self.samples_cons
 
     @classmethod
     def compute_pareto_front(cls, pts) -> np.ndarray:

@@ -35,6 +35,7 @@ from mobocmf_tpu_torch.core.constraints import Positive
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
 from mobocmf_tpu_torch.kernels.rbf import scale_rbf_constrained
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.parallel import sharding
 
 _positive = Positive()
 
@@ -287,19 +288,27 @@ def sample_prior(
 
 
 def eval_sample(
-    sample: MFDGPFunctionSample, x: torch.Tensor, layer: Optional[int] = None
+    sample: MFDGPFunctionSample, x: torch.Tensor, layer: Optional[int] = None, mesh=None
 ) -> torch.Tensor:
     """Evaluate the sampled function at x (N, d) -> (N,), chaining layers.
 
     layer=None evaluates the top layer (the reference always consumes
-    sample_function_from_each_layer()[-1])."""
+    sample_function_from_each_layer()[-1]). mesh: `sample`'s layer 0 holds
+    this rank's block of the features (parallel/sharding.py::
+    shard_features), so its theta @ phi is a partial sum over the 'dp'
+    ranks (summed there, differentiable in x)."""
     if x.ndim == 1:
         x = x[None, :]
     num_layers = len(sample.layers) if layer is None else layer + 1
-    n_features = sample.layers[0].w.shape[0]
+    n_features = sample.layers[0].w.shape[0] * sharding.axis_size(mesh, "dp")
     f = None
     for ell in range(num_layers):
         s = sample.layers[ell]
+        if ell == 0 and mesh is not None:
+            grp = mesh.get_group("dp")
+            feats = _phi(sharding.enter(x, grp), s.w, s.b, s.alpha, n_features)
+            f = sharding.reduce(s.theta @ feats, grp)
+            continue
         if ell == 0:
             feats = _phi(x, s.w, s.b, s.alpha, n_features)
         else:

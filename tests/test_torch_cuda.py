@@ -572,3 +572,59 @@ def test_cuda_generator_round_trips(cuda_device):
     assert h.device.type == "cuda"
     assert torch.equal(torch.randn(7, generator=h, device=cuda_device), want)
     assert torch.equal(torch.randn(7, generator=k, device=cuda_device), want)
+
+
+def test_gloo_collectives_take_cuda_tensors(cuda_device):
+    """Two ranks on one card over gloo: every collective of
+    parallel/sharding.py on CUDA tensors, with the autograd rules."""
+    from mobocmf_tpu_torch.parallel import launch
+    import torch_mesh_ranks as R
+
+    res = launch.run(R.collectives_on_card, 2, device="cuda", timeout_s=300)
+    for r, out in enumerate(res):
+        assert out["backend"] == "gloo" and out["transport"] == "host"
+        assert torch.equal(out["all_reduce"], torch.full((3,), 3.0))
+        assert torch.equal(out["all_gather"], torch.tensor([[0.0, 0.0, 1.0, 1.0]] * 2))
+        assert torch.equal(out["broadcast"], torch.zeros(2))
+        assert out["object"] == {"rank": 0}
+        assert torch.equal(out["gather_grad"], torch.full((2,), 2.0 * (r + 1)))
+        assert out["enter_reduce"] == (6.0, 3.0)
+
+
+@pytest.mark.parametrize("world_size", [1, 2])
+def test_capture_mode_chosen_from_backend(cuda_device, world_size):
+    """A phase whose step runs the mesh's collectives is captured under
+    nccl (one rank: the all-reduce inside the graph) and eager under gloo
+    (two ranks on one card), stated in its record; both equal the
+    unsharded captured phase at f64 (rtol 1e-8), and count one all-reduce
+    a step (under nccl: 2 eager, 1 captured, 3 replayed)."""
+    from mobocmf_tpu_torch.models.convert import model_to_numpy
+    from mobocmf_tpu_torch.parallel import launch
+    import torch_mesh_ranks as R
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(24, 2))
+    fid = (np.arange(24) % 2).astype(np.int32)
+    ys = np.stack([np.sin(4 * x[:, 0]) + x[:, 1] * fid, np.cos(3 * x[:, 1])])
+    models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                           device=cuda_device, dtype=torch.float64) for i, y in enumerate(ys)]
+    stacked = trainer.stack_models(models)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    eps, _ = trainer.draw_chunk(g, stacked.config, 6, 2, 24, 24, torch.float64, cuda_device)
+    stats0: dict = {}
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)  # noqa: E731
+    _, logs0 = trainer.train_phase_stacked_chunked(
+        stacked, dev(x), dev(ys), dev(fid), 6, 0.003, "all_free", 24, eps=eps, stats=stats0)
+    assert stats0["captured"] and stats0["replays"] == 4
+    res = launch.run(R.training_on_card, world_size, model_to_numpy(stacked), x, ys, fid, 6,
+                     eps.cpu().numpy(), device="cuda", timeout_s=300)
+    for stats, loss, collectives in res:
+        assert collectives == 6
+        if world_size == 1:
+            assert stats["captured"] and stats["replays"] == 4, stats
+        else:
+            assert not stats["captured"] and stats["replays"] == 0, stats
+            assert "gloo" in stats["capture_reason"]
+        # two ranks sum the rows in another order, and Adam divides by the
+        # root of second moments near zero: 1.8e-10 seen after 6 steps
+        np.testing.assert_allclose(loss, logs0.loss.cpu().numpy(), rtol=1e-8)

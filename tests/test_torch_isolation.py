@@ -39,6 +39,9 @@ from mobocmf_tpu_torch.models.exact_gp import init_exact_gp
 from mobocmf_tpu_torch.models.mfgp import init_mfgp
 from mobocmf_tpu_torch.models.mfgp_lin import init_mfgp_lin
 from mobocmf_tpu_torch.util.util import preprocess_outputs
+from mobocmf_tpu_torch.parallel.dryrun import dryrun_multichip
+from mobocmf_tpu_torch.parallel.launch import Group
+from mobocmf_tpu_torch.parallel.sharding import make_mesh
 
 walked = {m.name for m in pkgutil.walk_packages(mobocmf_tpu_torch.__path__, "mobocmf_tpu_torch.")}
 for name in ("bench", "bo.loop", "acquisition.batch", "acquisition.random_choice",
@@ -47,7 +50,8 @@ for name in ("bench", "bo.loop", "acquisition.batch", "acquisition.random_choice
              "models.mfgp", "models.mfgp_lin", "acquisition.mesmoc", "util.util",
              "util.profiling", "examples.example_mesmoc_mfgp", "examples.example_branin_currin_512",
              "examples.example_batch_bo_10d", "examples.example_dtlz2_2048", "fit.graphs",
-             "examples.example_synthetic_2D", "examples.example_acquisition_mfdgp_forrester"):
+             "examples.example_synthetic_2D", "examples.example_acquisition_mfdgp_forrester",
+             "parallel.sharding", "parallel.launch", "parallel.dryrun"):
     assert "mobocmf_tpu_torch." + name in walked, name
 
 leaked = sorted(m for m in sys.modules
@@ -83,6 +87,9 @@ calls = [
     lambda: init_mfgp_lin(np.c_[x, fid], x[:, 0], 2),
     lambda: init_exact_gp(x, x[:, 0]),
     lambda: preprocess_outputs(x[:, 0]),
+    lambda: make_mesh(),
+    lambda: Group(2),
+    lambda: dryrun_multichip(2),
 ]
 for call in calls:
     try:

@@ -256,8 +256,8 @@ def test_boconfig_validates_like_jax():
         PL.BOConfig(polish="slsqp ")
     jax_fields = {f for f in JL.BOConfig.__dataclass_fields__}
     port_fields = {f for f in PL.BOConfig.__dataclass_fields__}
-    assert port_fields == (jax_fields - {"mesh"}) | {"device", "dtype"}
-    for name in jax_fields - {"mesh"}:
+    assert port_fields == jax_fields | {"device", "dtype"}
+    for name in jax_fields:
         assert getattr(PL.BOConfig(), name) == getattr(JL.BOConfig(), name) or name in (
             "type_lengthscale",)
     assert PL.BOConfig().type_lengthscale.name == JL.BOConfig().type_lengthscale.name

@@ -262,3 +262,30 @@ def test_init_variational_matches_jax():
         want = JS.init_variational(jnp.asarray(m), jnp.asarray(cov))
         np.testing.assert_allclose(chol, np.asarray(want.chol_raw), rtol=1e-12, atol=1e-15)
         np.testing.assert_array_equal(mean, np.asarray(want.mean))
+
+
+@pytest.mark.parametrize("given_factor", [False, True])
+def test_svgp_predict_mean_matches_jax(given_factor):
+    """svgp.predict_mean on layer 0 of a perturbed model, with and without
+    the factor given: the mean at rtol 1e-9, the factor it used at 1e-12."""
+    from mobocmf_tpu.kernels import rbf as jrbf
+    from mobocmf_tpu.linalg.ops import safe_cholesky as jsafe_cholesky
+    from mobocmf_tpu.models import svgp as jsvgp
+    from mobocmf_tpu_torch.kernels import rbf
+    from mobocmf_tpu_torch.models import svgp
+
+    x, y, fid = _data(5)
+    jm = _perturb_whitened(_jax_model(5, x, y, fid, 2), 5)
+    lp, z = jm.params.layers[0], jm.consts.z_x[0]
+    xt = np.random.default_rng(6).uniform(size=(7, 2))
+    jitter = jm.config.jitter
+    lk_j = jsafe_cholesky(jrbf.rbf_gram(lp.kernel, z, z), jitter) if given_factor else None
+    mu_j, lk_j = jsvgp.predict_mean(jrbf.rbf_gram, lp.kernel, lp.variational, z,
+                                    jnp.asarray(xt), jitter, lk_j)
+    pm = _to_port(jm)
+    plp, pz = pm.params.layers[0], pm.consts.z_x[0]
+    lk_p = torch.as_tensor(np.asarray(lk_j))[None] if given_factor else None
+    mu_p, lk_p = svgp.predict_mean(rbf.rbf_gram, plp.kernel, plp.variational, pz,
+                                   torch.as_tensor(xt), jitter, lk_p)
+    np.testing.assert_allclose(mu_p[0].numpy(), np.asarray(mu_j), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(lk_p[0].numpy(), np.asarray(lk_j), rtol=1e-12, atol=1e-12)

@@ -20,7 +20,7 @@ from mobocmf_tpu.models import mfdgp as JM
 from mobocmf_tpu_torch.fit import bucketing, fitter, trainer
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.convert import model_from_numpy, model_to_numpy
-from mobocmf_tpu_torch.util.tree import tree_leaves
+from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 F64 = torch.float64
 
@@ -193,3 +193,60 @@ def test_fitter_rejects_mismatched_inputs():
     pf.initialize_mfdgp(x, ys[0], fid, "a")
     with pytest.raises(ValueError):
         pf.initialize_mfdgp(x + 1.0, ys[1], fid, "b")
+
+
+def _jax_phase_draws(key, num_epochs, n, nf, bsz=None):
+    """The draws of the JAX package's single-model train_phase
+    (trainer.py:203-214, :243): per epoch split(key_e) -> (perm key, eps
+    key); the minibatch path draws eps over the padded rows."""
+    padded = n if bsz is None else bsz * -(-n // bsz)
+    eps, perms = [], []
+    for ke in jax.random.split(key, num_epochs):
+        kperm, keps = jax.random.split(ke)
+        eps.append(np.asarray(jax.random.normal(keps, (nf, padded), dtype=jnp.float64)))
+        if bsz is not None:
+            perms.append(np.asarray(jax.random.permutation(kperm, n)))
+    return torch.as_tensor(np.array(eps)), (torch.as_tensor(np.array(perms)) if perms else None)
+
+
+@pytest.mark.parametrize("bsz", [None, 5])
+def test_train_phase_single_model_matches_jax(bsz):
+    """train_phase of one model (full batch and 3 minibatches), the JAX
+    key chain's draws injected: losses and params at rtol 1e-7 / atol 1e-9."""
+    x, ys, fid = _problem(n_real=12, seed=3)
+    jm = JM.init_mfdgp(jax.random.key(1), jnp.asarray(x), jnp.asarray(ys[0])[:, None],
+                       jnp.asarray(fid), 2)
+    key = jax.random.key(5)
+    n = x.shape[0]
+    p_j, logs_j = jtrainer.train_phase(jm.params, jm.consts, jm.config, jnp.asarray(x),
+                                       jnp.asarray(ys[0]), jnp.asarray(fid), key, 4, 0.003,
+                                       "all_free", bsz or n)
+    eps, perms = _jax_phase_draws(key, 4, n, 1, bsz)
+    pm = _port_model(jm.params, jm.consts, jm.config)
+    p_p, logs_p = trainer.train_phase(pm, torch.as_tensor(x), torch.as_tensor(ys[0]),
+                                      torch.as_tensor(fid), 4, 0.003, "all_free", bsz or n,
+                                      eps=eps, perms=perms)
+    assert logs_p.loss.shape == (4,)
+    np.testing.assert_allclose(logs_p.loss.numpy(), np.asarray(logs_j.loss), rtol=1e-7)
+    _assert_params_close(tree_map(lambda t: t[0], p_p), p_j, rtol=1e-7, atol=1e-9)
+
+
+def test_train_mfdgp_two_phase_matches_jax():
+    """The reference's single-model schedule: 6 epochs with the variational
+    hypers fixed, then 6 all free, each phase's draws from JAX's split key."""
+    x, ys, fid = _problem(n_real=12, seed=4)
+    jm = JM.init_mfdgp(jax.random.key(2), jnp.asarray(x), jnp.asarray(ys[1])[:, None],
+                       jnp.asarray(fid), 2)
+    key = jax.random.key(9)
+    n = x.shape[0]
+    jm2, log1_j, log2_j = jtrainer.train_mfdgp_two_phase(
+        jm, jnp.asarray(x), jnp.asarray(ys[1]), jnp.asarray(fid), key, 6, 6, 0.003, 0.001, n)
+    k1, k2 = jax.random.split(key)
+    draws = (_jax_phase_draws(k1, 6, n, 1), _jax_phase_draws(k2, 6, n, 1))
+    pm = _port_model(jm.params, jm.consts, jm.config)
+    pm2, log1_p, log2_p = trainer.train_mfdgp_two_phase(
+        pm, torch.as_tensor(x), torch.as_tensor(ys[1]), torch.as_tensor(fid), None, 6, 6, 0.003,
+        0.001, n, draws=draws)
+    np.testing.assert_allclose(log1_p.loss.numpy(), np.asarray(log1_j.loss), rtol=1e-7)
+    np.testing.assert_allclose(log2_p.loss.numpy(), np.asarray(log2_j.loss), rtol=1e-7)
+    _assert_params_close(tree_map(lambda t: t[0], pm2.params), jm2.params, rtol=1e-7, atol=1e-9)

@@ -87,3 +87,21 @@ def test_trace_writes_profile(tmp_path):
     for _, _, files in os.walk(d):
         found.extend(files)
     assert found, "trace context produced no profile files"
+
+
+def test_fit_config_matches_jax():
+    """core/config.py::FitConfig: the JAX package's fields and defaults,
+    frozen like it, and the port fitter's constructor defaults."""
+    import dataclasses
+    import inspect
+
+    from mobocmf_tpu.core.config import FitConfig as JFitConfig
+    from mobocmf_tpu_torch.core.config import FitConfig
+    from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
+
+    assert dataclasses.asdict(FitConfig()) == dataclasses.asdict(JFitConfig())
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        FitConfig().lr_1 = 0.1
+    defaults = inspect.signature(BlackBoxMFDGPFitter).parameters
+    for name, value in dataclasses.asdict(FitConfig()).items():
+        assert defaults[name].default == value, name
