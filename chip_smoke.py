@@ -45,6 +45,15 @@
    the models, and holds K2 on the path's own trained states to the plain
    route's accuracy (layer 0 against the f64 answer of the same system,
    and the recommendation means against the f64 models);
+5b. the JAX package's three switches, each flipped in this
+   process and restored (phase_variants): at f64, flat Adam
+   (MOBOCMF_FLAT_ADAM=1) against per-leaf Adam and the three-forward
+   conditioned loss (MOBOCMF_FUSED_COND=0) against the fused one through
+   captured phases, and the solve-route gains (MOBOCMF_ACQ_INV=0) against
+   the inverse route; at f32 and the b128 width, the fitter's training,
+   conditioned training and search under each setting with steps/s,
+   capture seconds and K1 / K2 launches, K1 per step equal under every
+   setting;
 6. drives the BO loop (mobocmf_tpu_torch/bo/loop.py::run_bo_loop) on the
    card at the bench's width (mobocmf_tpu_torch/bench.py: 4 blackboxes,
    120 points padded to m = 128, f32), at a cut depth (100 + 100 epochs,
@@ -676,33 +685,43 @@ def first_step_rungs(P, label, fitter, blackboxes) -> None:
               f"from the plain version's {want.tolist()}")
 
 
+def slice_problem(blackboxes, n_init):
+    """A slice's data: n_init points in [0, 1]^2, the last quarter at the top
+    fidelity, and each blackbox's outputs standardized, with its threshold,
+    as run_bo_loop does (bo/loop.py:158-162, 275-277, 326-327): (x, fid,
+    ys, (mean, std) per blackbox, thresholds)."""
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(size=(n_init, 2))
+    n_high = n_init // 4
+    fid = np.concatenate([np.zeros(n_init - n_high), np.ones(n_high)]).astype(int)
+    raw = [np.where(fid == 0, lo(x), hi(x)) for _, (lo, hi), _ in blackboxes]
+    stats = [(float(y.mean()), float(y.std())) for y in raw]
+    ys = [(y - mu) / sd for y, (mu, sd) in zip(raw, stats)]
+    thresholds = [(0.0 - mu) / sd for mu, sd in stats]
+    return x, fid, ys, stats, thresholds
+
+
+def slice_fitter(P, blackboxes, problem, epochs):
+    """The slice's fitter (f32 on the card), every blackbox initialized."""
+    x, fid, ys, _, thresholds = problem
+    fitter = P.BlackBoxMFDGPFitter(
+        num_fidelities=2, batch_size=x.shape[0], lr_1=0.003, lr_2=0.001,
+        num_epochs_1=epochs, num_epochs_2=epochs, seed=SEED, pad_data=True,
+    )
+    for (name, _, is_con), y, thr in zip(blackboxes, ys, thresholds):
+        fitter.initialize_mfdgp(x, y, fid, name, threshold_constraint=thr if is_con else 0.0,
+                                is_constraint=is_con)
+    return fitter
+
+
 def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     """One BO iteration's model side at full width: training, then JESMOC
     (Pareto sampling + conditioned training), the all-fidelity candidate
     search and the recommendation pass, each stage counted on its own."""
     trainer, M = P.trainer, P.M
-    rng = np.random.default_rng(SEED)
-    x = rng.uniform(size=(n_init, 2))
-    n_high = n_init // 4
-    fid = np.concatenate([np.zeros(n_init - n_high), np.ones(n_high)]).astype(int)
-    # outputs standardized per blackbox, thresholds with them, as run_bo_loop
-    # does (bo/loop.py:158-162, 275-277, 326-327)
-    raw = [np.where(fid == 0, lo(x), hi(x)) for _, (lo, hi), _ in blackboxes]
-    stats = [(float(y.mean()), float(y.std())) for y in raw]
-    ys = [(y - mu) / sd for y, (mu, sd) in zip(raw, stats)]
-    thresholds = [(0.0 - mu) / sd for mu, sd in stats]
-
-    def init():
-        fitter = P.BlackBoxMFDGPFitter(
-            num_fidelities=2, batch_size=n_init, lr_1=0.003, lr_2=0.001,
-            num_epochs_1=epochs, num_epochs_2=epochs, seed=SEED, pad_data=True,
-        )
-        for (name, _, is_con), y, thr in zip(blackboxes, ys, thresholds):
-            fitter.initialize_mfdgp(x, y, fid, name, threshold_constraint=thr if is_con else 0.0,
-                                    is_constraint=is_con)
-        return fitter
-
-    fitter, t_init, _, _, _ = staged(P, init)
+    problem = slice_problem(blackboxes, n_init)
+    _, _, _, stats, thresholds = problem
+    fitter, t_init, _, _, _ = staged(P, lambda: slice_fitter(P, blackboxes, problem, epochs))
     first_step_rungs(P, label, fitter, blackboxes)
     _, t_train, k1_train, esc_train, k2_train = staged(P, fitter.train_mfdgps)
     m = fitter.x_train.shape[0]
@@ -835,6 +854,209 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
         t_acq=t_acq, t_rec=t_rec,
         steps_per_s=[st["epochs"] / st["seconds"] for st in fitter.phase_stats],
     )
+
+
+# the variants phase at the b128 width: 200 + 200 training epochs and 200
+# conditioned steps per setting (chunks of 5000: one capture each)
+VARIANT_STEPS = 200
+
+
+@contextlib.contextmanager
+def flat_adam_env(on: bool):
+    """MOBOCMF_FLAT_ADAM set to `on` inside the block (the phases read it
+    when they build their optimizer), restored after."""
+    before = os.environ.get("MOBOCMF_FLAT_ADAM")
+    os.environ["MOBOCMF_FLAT_ADAM"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("MOBOCMF_FLAT_ADAM")
+        else:
+            os.environ["MOBOCMF_FLAT_ADAM"] = before
+
+
+def variants_f64(P) -> None:
+    """The JAX package's three switches at f64 on the card, each
+    non-default path against the default through captured phases (chunks of
+    REFERENCE_CHUNK steps, captured_reference's problem): flat Adam against
+    per-leaf Adam in a training phase (rel 1e-9), the three-forward
+    conditioned phase against the fused one and flat Adam in the
+    conditioned phase (rel 1e-9), each on the same draws; the solve-route
+    acquisition predictive and gains of the trained pair against the
+    inverse route's (rtol 1e-6, atol 1e-8), with no L^-1 in the states.
+    K1's launches per step must be equal under every setting of a phase."""
+    trainer, C, M, J, f64 = P.trainer, P.conditioned, P.M, P.jesmoc, torch.float64
+    rng = np.random.default_rng(2)
+    n, steps = 48, 5
+    x = rng.uniform(size=(n, 2))
+    fid = np.arange(n) % 2
+    ys = np.stack([np.sin(5 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0]])
+    pset, pfront = rng.uniform(size=(4, 2)), rng.normal(size=(4, 1))
+    t = lambda a, **kw: torch.as_tensor(a, device="cuda", **kw)  # noqa: E731
+    xq = t(x[:9] + 0.01)
+    eps = torch.randn((steps, 2, 1, n), generator=torch.Generator().manual_seed(5),
+                      dtype=f64).to("cuda")
+    model = trainer.stack_models([
+        M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i), device="cuda",
+                     dtype=f64) for i, y in enumerate(ys)])
+    k1_per_step = {}
+
+    def predictive(params, m):
+        return list(M.predict_for_acquisition_all(params, m.consts, m.config, xq))
+
+    def counted(key, fn):
+        P.chol.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        k1_per_step[key] = P.chol.launches / steps
+        return out
+
+    def train(flat):
+        with flat_adam_env(flat):
+            params, logs = counted(("train", flat), lambda: trainer.train_phase_stacked_chunked(
+                model, t(x), t(ys), t(fid), steps, 0.003, "all_free", n, eps=eps))
+        return params, [logs.loss, logs.kl] + predictive(params, model)
+
+    with P.patched(trainer, "chunk_size_for", lambda m: REFERENCE_CHUNK):
+        trained, want = train(False)
+        _, got = train(True)
+        rel = rel_diff(got, [w.cpu() for w in want])
+        print(f"[variants] f64 training phase, flat Adam vs per-leaf Adam (captured, {steps} "
+              f"steps): max rel diff {rel:.3e}", flush=True)
+        check(rel < 1e-9, f"flat Adam differs from per-leaf Adam by {rel:.3e}")
+
+        m = model._replace(params=trained)
+        obj, con = trainer.select_model(m, 0), trainer.select_model(m, 1)
+        data = C.ConditionedData(
+            x=t(x), ys_obj=t(ys[:1]), ys_con=t(ys[1:]), fidelities=t(fid), pareto_set=t(pset),
+            pareto_front=t(pfront), front_mask=t([True, True, True, False]),
+            thresholds=t([0.1], dtype=f64))
+        chunk = C.draw_chunk(torch.Generator().manual_seed(4), data._replace(
+            x=data.x.cpu(), pareto_set=data.pareto_set.cpu()), obj.config, 24, steps)
+        draws = [C.StepDraws(*(None if a is None else a[i].to("cuda") for a in chunk))
+                 for i in range(steps)]
+
+        def cond(fused, flat):
+            with flat_adam_env(flat), P.patched(C, "FUSED_COND_DEFAULT", fused):
+                op, cp, losses = counted(("cond", fused, flat), lambda: C.train_conditioned_chunked(
+                    obj.params, con.params, obj.consts, con.consts, obj.config, data, None, steps,
+                    0.01, 1e-8, 24, draws=draws))
+            return (op, cp), [losses] + predictive(op, obj) + predictive(cp, con)
+
+        (op, cp), want = cond(True, False)
+        for fused, flat, what in ((False, False, "three-forward vs fused"),
+                                  (True, True, "fused, flat Adam vs per-leaf"),
+                                  (False, True, "three-forward with flat Adam vs fused")):
+            rel = rel_diff(cond(fused, flat)[1], [w.cpu() for w in want])
+            print(f"[variants] f64 conditioned phase (captured, {steps} steps, minibatch of "
+                  f"24), {what}: max rel diff {rel:.3e}", flush=True)
+            check(rel < 1e-9, f"conditioned phase, {what}: differs by {rel:.3e}")
+
+    sc = trainer.stack_models([obj._replace(params=op), con._replace(params=cp)])
+    pair = (m.params, m.consts, sc.params, sc.consts, m.config)
+    routes = {}
+    for inv in (True, False):
+        with P.patched(J, "ACQ_INV_SOLVES", inv):
+            stack = J._pair(*pair)
+            states = J.pair_states(stack)
+            check(all((st.lk_inv is None) != inv for st in states),
+                  f"ACQ_INV_SOLVES={inv}: the states' L^-1 is not as set")
+            # the L-BFGS loop's route (gradients on): every layer's solve
+            # takes the states' L^-1 or the triangular factor
+            mus, var = M.predict_for_acquisition_all(stack.params, stack.consts, stack.config, xq,
+                                                     states)
+            gains = torch.stack([J.coupled_acq_stacked(*pair, f, xq) for f in (0, 1)])
+            routes[inv] = [t.detach() for t in (mus, var, gains)]
+    worst = 0.0
+    for got, want in zip(routes[False], routes[True]):
+        excess = (got - want).abs() / (1e-8 + 1e-6 * want.abs())
+        worst = max(worst, excess.max().item())
+    print(f"[variants] f64 acquisition predictive and gains, solve route vs inverse route: "
+          f"max |diff| / (1e-8 + 1e-6 |inverse route|) = {worst:.3e} (largest gain "
+          f"{routes[True][2].abs().max().item():.3e})", flush=True)
+    check(worst <= 1.0, "the solve route differs from the inverse route beyond rtol 1e-6")
+    per_step = ", ".join(f"{k} {v:g}" for k, v in k1_per_step.items())
+    print(f"[variants] f64 K1 launches per step: {per_step}", flush=True)
+    for kind in ("train", "cond"):
+        seen = {v for k, v in k1_per_step.items() if k[0] == kind}
+        check(len(seen) == 1 and seen.pop() > 0,
+              f"K1 launches per {kind} step differ between settings: {per_step}")
+
+
+def phase_variants(P, blackboxes) -> dict:
+    """The three switches: first variants_f64, then the A/B at f32 and the
+    b128 width through the fitter's entry points, each setting flipped in
+    this process and restored, with the kernel counters set to 0 just
+    before each stage and read just after: train_mfdgps per-leaf and flat
+    (VARIANT_STEPS + VARIANT_STEPS epochs), one Pareto sample, then
+    train_conditioned_mfdgps (VARIANT_STEPS steps) fused, three-forward and
+    flat from the same trained models and Pareto solution, and the
+    all-fidelity search (200 raw samples, 200 L-BFGS iterations) with
+    ACQ_INV_SOLVES on and off from the same raw samples. Prints steps/s
+    without the capture, capture seconds and K1 / K2 launches per setting
+    and fails unless K1's launches per step are equal under every setting.
+    Returns the path's K1 / K2 launches."""
+    variants_f64(P)
+    J, C = P.jesmoc, P.conditioned
+    problem = slice_problem(blackboxes, 120)
+    base = slice_fitter(P, blackboxes, problem, VARIANT_STEPS)
+    k1_all = k2_all = 0
+    rows = []
+
+    def stage(label, fn, records):
+        nonlocal k1_all, k2_all
+        out, seconds, k1, _, k2 = staged(P, fn)
+        k1_all, k2_all = k1_all + k1, k2_all + k2
+        for st in records():
+            rate = st["epochs"] / max(st["seconds"] - st["capture_seconds"], 1e-9)
+            per_step = st["chol_launches"] / st["epochs"]
+            rows.append((label, st["phase"], per_step))
+            print(f"[variants] b128 f32 {label} {st['phase']}: {st['epochs']} steps, {rate:.2f} "
+                  f"steps/s without the capture (capture {st['capture_seconds']:.3f} s); K1 "
+                  f"{st['chol_launches']} ({per_step:g} per step); loss last {st['last']:.6g}",
+                  flush=True)
+            check(np.isfinite(st["last"]), f"variants {label}: non-finite loss")
+        print(f"[variants] b128 f32 {label}: {seconds:.3f} s, K1 {k1}, K2 {k2}", flush=True)
+        return out
+
+    trained = None
+    for label, flat in (("train per-leaf Adam", False), ("train flat Adam", True)):
+        f = base.copy_uncond()
+        with flat_adam_env(flat):
+            stage(label, f.train_mfdgps, lambda: f.phase_stats)
+        trained = trained or f
+    stage("pareto", trained.sample_and_store_pareto_solution, list)
+    cond = None
+    for label, fused, flat in (("cond fused", True, False), ("cond three-forward", False, False),
+                               ("cond fused flat Adam", True, True)):
+        c = trained.copy_uncond()
+        with flat_adam_env(flat), P.patched(C, "FUSED_COND_DEFAULT", fused):
+            stage(label, c.train_conditioned_mfdgps, lambda: c.phase_stats[-1:])
+        cond = cond or c
+    for phase in (1, 2, "cond"):
+        seen = {r[2] for r in rows if r[1] == phase}
+        check(len(seen) <= 1, f"K1 launches per {phase} step differ between settings: {rows}")
+    searches = {}
+    for inv in (True, False):
+        jes = P.JESMOC_MFDGP(trained, num_fidelities=2, model_cond=cond, seed=SEED,
+                             acq_maxiter=200, acq_raw_samples=200)
+        for fi in range(2):
+            for name, _, is_con in blackboxes:
+                jes.add_blackbox(fi, name, cost_evaluation=(1.0, 10.0)[fi], is_constraint=is_con)
+        with P.patched(J, "ACQ_INV_SOLVES", inv):
+            (x_next, fid_next), seconds, k1, _, k2 = staged(P, jes.get_nextpoint_coupled)
+        k1_all, k2_all = k1_all + k1, k2_all + k2
+        vals = jes.last_values
+        searches[inv] = (seconds, k1, k2)
+        print(f"[variants] b128 f32 search ACQ_INV_SOLVES={int(inv)}: {seconds:.3f} s, "
+              f"x={x_next.tolist()} fidelity={fid_next}, values {vals.tolist()}; K1 {k1}, "
+              f"K2 {k2}", flush=True)
+        check(bool(torch.isfinite(vals).all()) and bool((vals >= 0).all()),
+              f"search ACQ_INV_SOLVES={inv}: values {vals.tolist()}")
+    check(searches[True][1:] == searches[False][1:],
+          f"the search's K1 / K2 launches differ with ACQ_INV_SOLVES: {searches}")
+    return dict(k1=k1_all, k2=k2_all)
 
 
 LOOP_EPOCHS = 100  # 100 + 100 epochs and 100 conditioned steps (5000 + 15000, 15000 in full)
@@ -1577,6 +1799,7 @@ def main() -> int:
         from mobocmf_tpu_torch.examples.example_dtlz2_2048 import main as dtlz2_main
         from mobocmf_tpu_torch.models import mfgp
         from mobocmf_tpu_torch.fit import conditioned, graphs
+        from mobocmf_tpu_torch.acquisition import jesmoc
         from mobocmf_tpu_torch.models import exact_gp
         from mobocmf_tpu_torch.examples.example_synthetic_2D import main as synthetic2d_main
         from mobocmf_tpu_torch.examples.example_acquisition_mfdgp_forrester import (
@@ -1610,7 +1833,7 @@ def main() -> int:
                             MESMOC_MFGP=MESMOC_MFGP, mesmoc_example=example_mesmoc_mfgp,
                             mfgp=mfgp, dtlz2_main=dtlz2_main, batch10d_main=batch10d_main,
                             patched=patched, conditioned=conditioned, graphs=graphs,
-                            exact_gp=exact_gp)
+                            exact_gp=exact_gp, jesmoc=jesmoc)
         phase_seconds = {}
 
         def timed(name, fn, *args):
@@ -1641,6 +1864,7 @@ def main() -> int:
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
         run_b = stepped("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS)
+        run_var = timed("variants", phase_variants, P, bench128)
         P.loop_blackboxes = bench_blackboxes(torch.device("cuda"))
         with tempfile.TemporaryDirectory() as tmp:
             run_loop_a = stepped("loop", phase_loop, P, Path(tmp))
@@ -1689,6 +1913,7 @@ def main() -> int:
                                  "loop": run_loop_a["k1"], "mesmoc": run_mes["k1"],
                                  "dtlz2_2048": run_dtlz2["k1"], "batch10d": run_b10["k1"],
                                  "synthetic2d": run_s2d["k1"], "forrester": run_forr["k1"],
+                                 "variants": run_var["k1"],
                                  **{k: v["k1"] for k, v in run_mesh.items()}},
             "at_mesmoc_shape": {key: small[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1710,6 +1935,7 @@ def main() -> int:
                                  "loop": run_loop_a["k2"], "mesmoc": run_mes["k2"],
                                  "dtlz2_2048": run_dtlz2["k2"], "batch10d": run_b10["k2"],
                                  "synthetic2d": run_s2d["k2"], "forrester": run_forr["k2"],
+                                 "variants": run_var["k2"],
                                  **{k: v["k2"] for k, v in run_mesh.items()}},
             "at_path_shapes": {name: dict(shape=r["k2_shape"], **r["k2_timing"])
                                for name, r in (("dtlz2_2048", run_dtlz2), ("batch10d", run_b10))},

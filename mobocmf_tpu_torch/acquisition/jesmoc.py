@@ -13,10 +13,14 @@ fidelity and takes the fidelity with the best cost-normalized value
 
 The unconditioned and conditioned models of every registered blackbox are
 stacked on ONE blackbox dim (2B models): their layer states are computed
-once per search, with the explicit L^{-1} (the JAX package's
-ACQ_INV_SOLVES default), and one forward scores both. Without gradients
-(the raw-sample screening) each model's layer 0 runs through K2 with
-B = 2 x blackboxes; the L-BFGS loop keeps the plain predictive.
+once per search, and one forward scores both. The states carry the
+explicit L^{-1}, so each per-x solve of the L-BFGS loop is a matrix
+product, unless MOBOCMF_ACQ_INV=0 (the JAX package's switch, read at
+import as `ACQ_INV_SOLVES`, by `pair_states` at each call): then they carry
+none and every predictive solves with the triangular factor. Without
+gradients (the raw-sample screening) each model's layer 0 runs through K2
+with B = 2 x blackboxes either way (K2 factors its own Gram); the L-BFGS
+loop keeps the plain predictive.
 
 A q > 1 batch is filled at the chosen fidelity by greedy
 local-penalization picks (`get_batch_coupled`, acquisition/batch.py), each
@@ -38,6 +42,7 @@ take the same branches on every rank.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -50,8 +55,9 @@ from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.parallel import sharding
 
 # the acquisition states carry the explicit L^{-1}, so every per-x solve
-# of the L-BFGS loop is a matrix product (JAX package's ACQ_INV_SOLVES)
-ACQ_INV_SOLVES = True
+# of the L-BFGS loop is a matrix product; MOBOCMF_ACQ_INV=0 keeps the
+# triangular solves (the JAX package's switch, read at import)
+ACQ_INV_SOLVES = os.environ.get("MOBOCMF_ACQ_INV", "1") == "1"
 
 
 def _gain(var: torch.Tensor, num: int) -> torch.Tensor:
@@ -79,6 +85,8 @@ def _over_bb(acq, mesh):
 
 
 def pair_states(pair: M.MFDGPModel) -> List[M.LayerState]:
+    """The pair stack's layer states, with L^{-1} when ACQ_INV_SOLVES (read
+    at the call)."""
     with torch.no_grad():
         return trainer.states_stacked(pair.params, pair.consts, pair.config, with_inv=ACQ_INV_SOLVES)
 

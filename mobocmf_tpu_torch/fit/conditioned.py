@@ -17,15 +17,20 @@ with 10 fresh uniform x_tilde points per iteration (reference :277) and
               q = prod_c Phi(g_c(x_j)) * prod_k Phi(g*_{p,k}(x_j)),
               g*_{p,k} = (F*_{p,k} - mu_k(x_j)) / sd_k(x_j)           (:235-243)
 
-The loss is the JAX package's fused single-forward form: objective and
-constraint models are stacked on one blackbox dim, their inducing chains
-factored once per step (one K1 launch per layer for all of them), and one
-forward evaluates the rows [batch; X*; x_tilde]. Padded Pareto rows are
-masked out of the sums. Per step the randomness is the minibatch (when it
-is smaller than the data), x_tilde and the propagation normals; they come
-from a torch.Generator, drawn a chunk of steps at a time before the chunk
-runs, or are injected (`StepDraws`). The phase runs in bounded chunks as
-the unconditioned phases do (fit/trainer.py, fit/graphs.py).
+Objective and constraint models are stacked on one blackbox dim and their
+inducing chains factored once per step (one K1 launch per layer for all of
+them). The loss then takes one of the JAX package's two forms, the same
+math on the same draws: fused (its default, MOBOCMF_FUSED_COND=1), one
+forward at the rows [batch; X*; x_tilde]; or three forwards
+(MOBOCMF_FUSED_COND=0), one each at the batch, at X* and at x_tilde, on
+the matching columns of the step's normals. `FUSED_COND_DEFAULT` is read
+at import, as the JAX package reads it; the phases read the module's value
+when they start. Padded Pareto rows are masked out of the sums. Per step
+the randomness is the minibatch (when it is smaller than the data),
+x_tilde and the propagation normals; they come from a torch.Generator,
+drawn a chunk of steps at a time before the chunk runs, or are injected
+(`StepDraws`). The phase runs in bounded chunks as the unconditioned
+phases do (fit/trainer.py, fit/graphs.py).
 
 Over a mesh (`mesh=`, parallel/sharding.py) the split follows the
 unconditioned phases' (fit/trainer.py), with three rules because the loss
@@ -44,6 +49,7 @@ the top layer's means and variances there are gathered over 'bb'
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +62,10 @@ from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 NUM_OMEGA_POINTS = 10  # reference :277
+
+# the JAX package's switch (mobocmf_tpu/fit/conditioned.py): one forward
+# per step at [batch; X*; x_tilde] unless MOBOCMF_FUSED_COND=0
+FUSED_COND_DEFAULT = os.environ.get("MOBOCMF_FUSED_COND", "1") == "1"
 
 
 def loss_theta_factors(cs_mean, cs_var, threshold, eps: float, mask) -> torch.Tensor:
@@ -142,6 +152,20 @@ class Shard(NamedTuple):
     weight_sum: torch.Tensor
 
 
+def _forwards(params, consts, config, xs: Sequence[torch.Tensor], eps: torch.Tensor, states,
+              fused: bool):
+    """Each layer's (mu, var) at each row block of `xs`, one list per block;
+    eps holds the blocks' normals side by side on its last dim. Fused: one
+    forward at the blocks' rows together; else one forward per block."""
+    sizes = [x.shape[0] for x in xs]
+    if not fused:
+        return [M.forward(params, consts, config, x, e, states=states)
+                for x, e in zip(xs, eps.split(sizes, dim=-1))]
+    outs = M.forward(params, consts, config, torch.cat(xs, dim=0), eps, states=states)
+    parts = [list(zip(mu.split(sizes, dim=-1), var.split(sizes, dim=-1))) for mu, var in outs]
+    return [[layer[i] for layer in parts] for i in range(len(xs))]
+
+
 def _loss_stacked(
     params: M.MFDGPParams,
     consts: M.MFDGPConsts,
@@ -153,38 +177,37 @@ def _loss_stacked(
     x_tilde: torch.Tensor,
     eps: torch.Tensor,
     shard: Optional[Shard] = None,
+    fused: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The conditioned loss of O objectives followed by C constraints,
     stacked on one blackbox dim (O = rows of data.ys_obj), as (the
     blackboxes' terms, omega): the loss is terms - omega. With `shard`,
     params hold this rank's objectives then constraints and batch_idx its
-    rows, and the terms are this rank's part (omega is whole)."""
+    rows, and the terms are this rank's part (omega is whole). fused: one
+    forward at [batch; X*; x_tilde], else three (the module docstring)."""
     objs = slice(None) if shard is None else shard.objs
     cons = slice(None) if shard is None else shard.cons
     once = 1.0 if shard is None else shard.once
     num_obj = data.ys_obj[objs].shape[0]
-    b = batch_idx.shape[0]
-    p = data.pareto_set.shape[0]
     top = config.num_fidelities - 1
     n_real = data.x.shape[0] if data.row_weights is None else torch.sum(data.row_weights)
     ys = torch.cat([data.ys_obj[objs], data.ys_con[cons]], dim=0)
     weight_sum = torch.sum(batch_w) if shard is None else shard.weight_sum
 
     states = trainer.states_stacked(params, consts, config)
-    x_cat = torch.cat([data.x[batch_idx], data.pareto_set, x_tilde], dim=0)
-    outs = M.forward(params, consts, config, x_cat, eps, states=states)
+    outs_b, outs_p, outs_t = _forwards(params, consts, config,
+                                       (data.x[batch_idx], data.pareto_set, x_tilde), eps,
+                                       states, fused)
 
     # minibatch ELBO of every model, rescaled to the real data size; the
     # divisor is clamped so an all-padded minibatch contributes exactly 0
-    outs_b = [(mu[:, :b], var[:, :b]) for mu, var in outs]
     data_b = _data_term(params, consts, config, outs_b, ys[:, batch_idx],
                         data.fidelities[batch_idx], batch_w)
     kl = M.kl_all_layers(params, consts, config, states=states)
     elbo = data_b - kl * torch.sum(batch_w) / n_real
     losses = -elbo / torch.clamp(weight_sum, min=1.0) * n_real
 
-    mu_top, var_top = outs[top]
-    mu_p, var_p = mu_top[:, b : b + p], var_top[:, b : b + p]
+    mu_p, var_p = outs_p[top]
     noise = M.likelihood_noise(params, consts, top)[:num_obj]
     ll = gaussian_expected_log_prob(
         data.pareto_front[:, objs].mT, mu_p[:num_obj], var_p[:num_obj], noise[:, None]
@@ -196,8 +219,8 @@ def _loss_stacked(
         data.front_mask,
     )
     con_terms = losses[num_obj:] - once * theta
-    tilde = [mu_top[:num_obj, b + p:], var_top[:num_obj, b + p:],
-             mu_top[num_obj:, b + p:], var_top[num_obj:, b + p:]]
+    mu_t, var_t = outs_t[top]
+    tilde = [mu_t[:num_obj], var_t[:num_obj], mu_t[num_obj:], var_t[num_obj:]]
     if shard is not None and shard.bb_group is not None:
         whole = (data.ys_obj.shape[0],) * 2 + (data.ys_con.shape[0],) * 2
         tilde = [sharding.gather(t, shard.bb_group, 0) if n else t
@@ -220,14 +243,18 @@ def conditioned_loss(
     x_tilde: torch.Tensor,
     eps_o: torch.Tensor,  # (O, F-1, b+P+10)
     eps_c: torch.Tensor,  # (C, F-1, b+P+10)
+    fused: bool = True,
 ) -> torch.Tensor:
-    """Fused single-forward conditioned loss (the JAX package's default,
-    fused=True) with the draws given: x_tilde (10, d) and each model's
-    normals for the rows [batch; X*; x_tilde]."""
+    """The conditioned loss with the draws given: x_tilde (10, d) and each
+    model's normals for the rows [batch; X*; x_tilde] (the JAX function's
+    eps_b, eps_p and eps_t side by side). fused: one forward at those rows
+    (the default here and the phases' default); False, the three forwards
+    of MOBOCMF_FUSED_COND=0. The JAX function's own default is
+    fused=False."""
     params, consts = _stack(obj_params, con_params, obj_consts, con_consts)
     eps = torch.cat([eps_o, eps_c], dim=0)
     terms, omega = _loss_stacked(params, consts, config, data, eps_const, batch_idx, batch_w,
-                                 x_tilde, eps)
+                                 x_tilde, eps, fused=fused)
     return terms - omega
 
 
@@ -271,13 +298,15 @@ class ConditionedPhase:
     graphs.Steps runs. `run_chunk(draws)` runs as many steps as the chunk's
     draws have rows and returns their losses. mesh: this rank's slices of
     the objectives and constraints and its block of each step's rows (the
-    module docstring); the draws are the whole phase's."""
+    module docstring); the draws are the whole phase's. fused: the loss's
+    form (None: FUSED_COND_DEFAULT)."""
 
     def __init__(self, obj_params, con_params, obj_consts, con_consts, config, data,
                  lr: float, eps_const: float, batch_size: int, chunk: int = 1,
-                 opt_state: Optional[dict] = None, mesh=None):
+                 opt_state: Optional[dict] = None, mesh=None, fused: Optional[bool] = None):
         self.config, self.data, self.eps_const = config, data, eps_const
         self.mesh = mesh
+        self.fused = FUSED_COND_DEFAULT if fused is None else fused
         num_obj, num_con = data.ys_obj.shape[0], data.ys_con.shape[0]
         objs, cons = trainer.model_block(mesh, num_obj), trainer.model_block(mesh, num_con)
         self.num_obj = objs.stop - objs.start
@@ -290,10 +319,8 @@ class ConditionedPhase:
 
         (op, oc), (cp, cc) = part(obj_params, obj_consts, objs), part(con_params, con_consts, cons)
         all_p, self.consts = _stack(op, cp, oc, cc)
-        self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), all_p)
-        self.leaves = tree_leaves(self.params)
-        self.masks = tree_leaves(trainer.MASK_BUILDERS["fix_cond"](self.params))
-        self.opt = graphs.adam(self.leaves, lr, opt_state)
+        self.trainable = graphs.Trainable(
+            all_p, tree_leaves(trainer.MASK_BUILDERS["fix_cond"](all_p)), lr, opt_state)
         rw = data.row_weights
         self.rw = torch.ones((n,), dtype=dtype, device=dev) if rw is None else rw
         self.full = torch.arange(n, device=dev)
@@ -320,7 +347,8 @@ class ConditionedPhase:
                                     max(config.num_fidelities - 1, 0), self.eps_cols.shape[0]),
                                    dtype=dtype, device=dev)
         self.loss_buf = torch.zeros((chunk,), dtype=dtype, device=dev)
-        self.steps = graphs.Steps(self._step, dev, self.leaves, *sharding.capture_rule(mesh))
+        self.steps = graphs.Steps(self._step, dev, self.trainable.tensors,
+                                  *sharding.capture_rule(mesh))
 
     def _step(self) -> None:
         ix = self.index
@@ -329,23 +357,21 @@ class ConditionedPhase:
         if shard is not None:
             shard = shard._replace(weight_sum=torch.sum(self.rw[bidx]))
             bidx = bidx[self.cols]
-        self.opt.zero_grad(set_to_none=True)
-        terms, omega = _loss_stacked(self.params, self.consts, self.config, self.data,
+        tr = self.trainable
+        tr.zero_grad()
+        terms, omega = _loss_stacked(tr.tree(), self.consts, self.config, self.data,
                                      self.eps_const, bidx, self.rw[bidx], ix.take(self.xt_buf),
-                                     ix.take(self.eps_buf), shard)
+                                     ix.take(self.eps_buf), shard, self.fused)
         loss = terms - (omega if shard is None else shard.once * omega)
         loss.backward()
         if shard is not None:
             # the logged loss: every rank's terms, and omega once
             logged = (terms - shard.once * omega / sharding.axis_size(self.mesh, "bb")).detach()
-            trainer.sum_over_dp(self.mesh, [p.grad for p in self.leaves] + [logged])
+            trainer.sum_over_dp(self.mesh, tr.grads() + [logged])
             if shard.bb_group is not None:
                 sharding.all_reduce(logged, shard.bb_group)
             loss = logged
-        for p, m in zip(self.leaves, self.masks):
-            if p.grad is not None and m != 1.0:
-                p.grad.mul_(m)
-        self.opt.step()
+        tr.step()
         ix.put(self.loss_buf, 0, loss)
         ix.advance()
 
@@ -364,7 +390,7 @@ class ConditionedPhase:
 
     def result(self) -> Tuple[M.MFDGPParams, M.MFDGPParams]:
         """The whole objective and constraint stacks (gathered over 'bb')."""
-        params = tree_map(lambda t: t.detach(), self.params)
+        params = self.trainable.values()
         op = tree_map(lambda t: t[: self.num_obj], params)
         cp = tree_map(lambda t: t[self.num_obj:], params)
         if self.data.ys_con.shape[0] == 0:
@@ -396,6 +422,7 @@ def train_conditioned_carry(
     opt_state: Optional[dict] = None,
     draws: Optional[Sequence[StepDraws]] = None,
     mesh=None,
+    fused: Optional[bool] = None,
 ):
     """Joint conditioned Adam steps as one chunk with an explicit
     optimizer-state carry: opt_state None starts fresh, passing it back
@@ -405,16 +432,17 @@ def train_conditioned_carry(
     Every model sees the same per-step minibatch (identical to the
     reference when batch_size >= N, the examples' default). draws: one
     StepDraws per step (default: drawn from `generator`). mesh: over
-    ('bb', 'dp'); opt_state is then this rank's."""
+    ('bb', 'dp'); opt_state is then this rank's. fused: the loss's form
+    (None: FUSED_COND_DEFAULT; the JAX function defaults to False)."""
     phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
-                             eps_const, batch_size, max(num_iters, 1), opt_state, mesh)
+                             eps_const, batch_size, max(num_iters, 1), opt_state, mesh, fused)
     try:
         losses = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
         if num_iters:
             losses = phase.run_chunk(_chunk_draws(generator, phase, batch_size, 0, num_iters,
                                                   draws))
         op, cp = phase.result()
-        return op, cp, phase.opt.state_dict(), losses
+        return op, cp, phase.trainable.opt.state_dict(), losses
     finally:
         phase.close()
 
@@ -424,11 +452,13 @@ def train_conditioned(
     num_iters: int, lr: float, eps_const: float, batch_size: int,
     draws: Optional[Sequence[StepDraws]] = None,
     mesh=None,
+    fused: Optional[bool] = None,
 ):
-    """A fresh conditioned phase as one chunk: (obj_params, con_params, losses)."""
+    """A fresh conditioned phase as one chunk: (obj_params, con_params,
+    losses). fused: None reads FUSED_COND_DEFAULT."""
     op, cp, _, losses = train_conditioned_carry(
         obj_params, con_params, obj_consts, con_consts, config, data, generator,
-        num_iters, lr, eps_const, batch_size, draws=draws, mesh=mesh,
+        num_iters, lr, eps_const, batch_size, draws=draws, mesh=mesh, fused=fused,
     )
     return op, cp, losses
 
@@ -461,11 +491,14 @@ def train_conditioned_chunked(
     `cond:chunk{ci}` after each. Each chunk's draws are made before it runs
     (or taken from `draws`, one StepDraws per step of the phase). `stats`,
     when given, receives the chunks, capture seconds, replays, steps and
-    whether the phase was captured (and why). mesh: over ('bb', 'dp')."""
+    whether the phase was captured (and why). mesh: over ('bb', 'dp'). The
+    loss's form is the module's FUSED_COND_DEFAULT as it stands at the call,
+    as in the JAX package."""
     _check_shared_inducing(obj_consts, con_consts)
     sizes = trainer.chunk_sizes(num_iters, data.x.shape[0])
     phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
-                             eps_const, batch_size, max(sizes, default=1), mesh=mesh)
+                             eps_const, batch_size, max(sizes, default=1), mesh=mesh,
+                             fused=FUSED_COND_DEFAULT)
     try:
         losses, start = [], 0
         for ci, size in enumerate(sizes):

@@ -25,6 +25,10 @@ is made uncaptured up front (`capture=False`, from
 parallel/sharding.py::capture_rule, with the reason kept in
 `capture_reason`), and every step then runs eagerly on the card.
 
+`Trainable` holds a phase's parameters, gradient masks and Adam, per leaf
+or, under MOBOCMF_FLAT_ADAM=1 (the JAX package's optax.flatten(optax.adam)
+switch, read when a phase builds its optimizer), as one flat tensor.
+
 Kernel counters: K1's wrapper called while its stream is capturing adds
 to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
 launches of every replay to `launches`, and likewise the collectives of
@@ -36,13 +40,15 @@ frees the graph and its memory pool at the end of the phase.
 from __future__ import annotations
 
 import copy
+import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 
 from mobocmf_tpu_torch.linalg import chol
 from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
 # eager steps before the capture: the first builds and loads K1, allocates
 # the Adam state and the cuBLAS workspace; the second runs on warm caches
@@ -61,6 +67,7 @@ def adam(leaves: Iterable[torch.Tensor], lr: float,
     cuda = leaves[0].is_cuda
     opt = torch.optim.Adam(leaves, lr=lr, eps=1e-8, capturable=cuda)
     if state is not None:
+        _check_state(state, leaves)
         opt.load_state_dict(copy.deepcopy(state))
     if cuda:
         for p in leaves:
@@ -71,6 +78,87 @@ def adam(leaves: Iterable[torch.Tensor], lr: float,
                 st.update(step=torch.zeros((), dtype=p.dtype, device=p.device),
                           exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
     return opt
+
+
+def _check_state(state: dict, leaves: List[torch.Tensor]) -> None:
+    """A carried Adam state must be one for these tensors: a per-leaf state
+    handed to a flat phase, or the reverse, raises rather than restarting."""
+    count = sum(len(g["params"]) for g in state["param_groups"])
+    fits = count == len(leaves) and all(
+        tuple(st["exp_avg"].shape) == tuple(leaves[i].shape)
+        for i, st in state["state"].items() if "exp_avg" in st)
+    if not fits:
+        raise ValueError(
+            f"an Adam state of {count} tensor(s) handed to a phase of {len(leaves)} "
+            f"(MOBOCMF_FLAT_ADAM={os.environ.get('MOBOCMF_FLAT_ADAM', '0')}): a carried state "
+            "is accepted only under the setting that made it")
+
+
+def flat_adam() -> bool:
+    """The JAX package's MOBOCMF_FLAT_ADAM switch (fit/trainer.py::
+    make_adam), read when a phase builds its optimizer: "1" hands Adam one
+    flat tensor."""
+    return os.environ.get("MOBOCMF_FLAT_ADAM", "0") == "1"
+
+
+class Trainable:
+    """A training or conditioned phase's parameter tree, its 0/1 gradient
+    masks (one factor per leaf) and the Adam that updates it. (The exact-GP
+    fits stay per leaf, as the JAX package's never flatten.)
+
+    Per leaf (the default): each leaf is a tensor of its own, one of Adam's
+    parameters, masked by its own factor. Flat (`flat_adam()`): the leaves
+    are one flat tensor, Adam's only parameter, masked by one flat mask;
+    `tree()` gives them as views of it, made anew for every forward so that
+    the backward reaches the flat tensor's `.grad`. `tensors` are what Adam
+    updates; their gradients (`grads()`) are what a mesh all-reduces."""
+
+    def __init__(self, params, masks: Sequence[float], lr: float, state: Optional[dict] = None):
+        leaves = [t.detach() for t in tree_leaves(params)]
+        self.like = params
+        self.flat = flat_adam()
+        if self.flat:
+            self.shapes = [t.shape for t in leaves]
+            self.sizes = [t.numel() for t in leaves]
+            flat = torch.cat([t.reshape(-1) for t in leaves])
+            self.tensors = [flat.requires_grad_(True)]
+            mask = None
+            if any(m != 1.0 for m in masks):
+                mask = torch.cat([torch.full((n,), float(m), dtype=flat.dtype, device=flat.device)
+                                  for n, m in zip(self.sizes, masks)])
+            self.masks = [mask]
+        else:
+            self.tensors = [t.clone().requires_grad_(True) for t in leaves]
+            self.masks = [None if m == 1.0 else m for m in masks]
+            self._tree = tree_unflatten(params, self.tensors)
+        self.opt = adam(self.tensors, lr, state)
+
+    def _views(self, flat: torch.Tensor):
+        return tree_unflatten(self.like, [v.view(s) for v, s in
+                                          zip(flat.split(self.sizes), self.shapes)])
+
+    def tree(self):
+        """The parameter tree the loss differentiates."""
+        return self._views(self.tensors[0]) if self.flat else self._tree
+
+    def values(self):
+        """The parameters now, detached (each leaf its own tensor)."""
+        if self.flat:
+            return tree_map(lambda t: t.clone(), self._views(self.tensors[0].detach()))
+        return tree_map(lambda t: t.detach(), self._tree)
+
+    def grads(self) -> List[torch.Tensor]:
+        return [p.grad for p in self.tensors]
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        """Mask the gradients, then one Adam update."""
+        for p, m in zip(self.tensors, self.masks):
+            if p.grad is not None and m is not None:
+                p.grad.mul_(m)
+        self.opt.step()
 
 
 class StepIndex:

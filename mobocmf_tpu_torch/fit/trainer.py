@@ -8,7 +8,9 @@
 A phase is a run of Adam steps (eps 1e-8, a fresh state per phase) on the
 stacked model: the loss is the sum of the blackboxes' negative ELBOs, so
 each blackbox gets its own gradient, as under the JAX package's vmap.
-Freezing multiplies `.grad` by a 0/1 mask before `step()`.
+Freezing multiplies `.grad` by a 0/1 mask before `step()`. Adam updates
+each leaf, or one flat tensor under MOBOCMF_FLAT_ADAM=1 (fit/graphs.py::
+Trainable), the JAX package's make_adam switch.
 
 As in the JAX package, a phase runs in bounded chunks of epochs
 (`chunk_size_for`, keyed on the padded row count) with the Adam state
@@ -258,10 +260,9 @@ class TrainPhase:
         self.x_rows, self.ys_rows = x[r], self.ys[:, r]
         self.fid_rows, self.w_rows = self.fid[r], row_weights[r]
 
-        self.params = tree_map(lambda t: t.detach().clone().requires_grad_(True), model.params)
-        self.leaves = tree_leaves(self.params)
-        self.masks = tree_leaves(build_mask(self.params, mask_kind, self.config))
-        self.opt = graphs.adam(self.leaves, lr, opt_state)
+        self.trainable = graphs.Trainable(
+            model.params, tree_leaves(build_mask(model.params, mask_kind, self.config)), lr,
+            opt_state)
 
         dev, nb = x.device, self.num_models
         self.index = graphs.StepIndex(dev)
@@ -272,22 +273,20 @@ class TrainPhase:
         self.loss_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
         self.kl_buf = torch.zeros((nb, chunk), dtype=x.dtype, device=dev)
         collectives = mesh if mesh is not None else getattr(self.consts, "inducing", None)
-        self.steps = graphs.Steps(self._epoch, dev, self.leaves,
+        self.steps = graphs.Steps(self._epoch, dev, self.trainable.tensors,
                                   *sharding.capture_rule(collectives))
 
     def _update(self, xb, yb, fb, wb, eb):
-        self.opt.zero_grad(set_to_none=True)
-        elbo, kl = elbo_terms(self.params, self.consts, self.config, xb, yb, fb, eb, self.nd,
+        tr = self.trainable
+        tr.zero_grad()
+        elbo, kl = elbo_terms(tr.tree(), self.consts, self.config, xb, yb, fb, eb, self.nd,
                               weights=wb)
         loss = -elbo
         torch.sum(loss).backward()
         loss, kl = loss.detach(), kl.detach()
         if self.mesh is not None:
-            sum_over_dp(self.mesh, [p.grad for p in self.leaves] + [loss, kl])
-        for p, m in zip(self.leaves, self.masks):
-            if p.grad is not None and m != 1.0:
-                p.grad.mul_(m)
-        self.opt.step()
+            sum_over_dp(self.mesh, tr.grads() + [loss, kl])
+        tr.step()
         return loss, kl
 
     def _epoch(self) -> None:
@@ -326,7 +325,7 @@ class TrainPhase:
                                              kl=self.kl_buf[:, :e].clone()))
 
     def check_finite(self, where: str) -> None:
-        finite = torch.stack([torch.isfinite(t).all() for t in self.leaves]).all()
+        finite = torch.stack([torch.isfinite(t).all() for t in self.trainable.tensors]).all()
         if not bool(finite):
             raise RuntimeError(
                 f"{where}: unconditioned training produced non-finite parameters "
@@ -335,7 +334,7 @@ class TrainPhase:
 
     def result(self) -> M.MFDGPParams:
         """The trained parameters of the whole stack (gathered over 'bb')."""
-        return gather_bb(self.mesh, tree_map(lambda t: t.detach(), self.params))
+        return gather_bb(self.mesh, self.trainable.values())
 
     def close(self) -> None:
         self.steps.close()
@@ -398,7 +397,7 @@ def train_phase_stacked_carry(
         log = _empty_log(ys.shape[0], x)
         if num_epochs:
             log = phase.run_chunk(*_phase_draws(generator, phase, 0, num_epochs, eps, perms))
-        return phase.result(), phase.opt.state_dict(), log
+        return phase.result(), phase.trainable.opt.state_dict(), log
     finally:
         phase.close()
 

@@ -1,17 +1,22 @@
-"""Where a training step's time goes on the card.
+"""Where a training or conditioned step's time goes on the card.
 
-    python -m mobocmf_tpu_torch.profile_train [--points 490] [--steps 20]
+    python -m mobocmf_tpu_torch.profile_train [--points 490] [--steps 20] [--phase cond]
 
 Builds the Branin-Currin models of chip_smoke.py (490 points padded to
 m = 512, or --points 120 for m = 128, with a fourth blackbox) and runs
-full-batch training steps as the fitter does: one phase
-(fit/trainer.py::TrainPhase) whose steps replay one captured CUDA graph
-(fit/graphs.py). A first chunk of --steps warms up and captures the step;
-a second is timed with CUDA-synchronised host clocks; a third is traced
-with torch.profiler. Prints one JSON line: steps/s, the capture's
-seconds, device time per step and its share of the traced and of the
-untraced step, kernel launches per step, and the kernels that take the
-most device time. Needs a CUDA device.
+full-batch steps as the fitter does: one phase whose steps replay one
+captured CUDA graph (fit/graphs.py), a training phase
+(fit/trainer.py::TrainPhase) or, with --phase cond, a conditioned phase
+(fit/conditioned.py::ConditionedPhase) on a Pareto set of the fitter's
+size (50 points drawn uniformly, a front drawn from normals: the step's
+shapes, not a sampled solution). A first chunk of --steps warms up and
+captures the step; a second is timed with CUDA-synchronised host clocks; a
+third is traced with torch.profiler. Prints one JSON line: steps/s, the
+capture's seconds, device time per step and its share of the traced and
+of the untraced step, kernel launches per step, and the kernels that take
+the most device time, with the settings of MOBOCMF_FLAT_ADAM and
+MOBOCMF_FUSED_COND (set them in the environment to A/B a switch). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -51,26 +56,59 @@ def build_model(points: int, seed: int = 7):
     return fitter, model, ys
 
 
+def cond_phase(fitter, model, ys, steps: int, pareto_points: int = 50):
+    """A conditioned phase on the stacked models (objectives first, as the
+    fitter stacks them) and its data: a Pareto set of `pareto_points`
+    uniform points with a front of standard normals."""
+    from mobocmf_tpu_torch.fit import conditioned, trainer
+
+    num_obj = len(fitter.ys_objs)
+    obj = trainer.select_model(model, 0, num_obj)
+    con = trainer.select_model(model, num_obj, ys.shape[0])
+    x = fitter.x_train
+    g = torch.Generator(device=x.device).manual_seed(11)
+    data = conditioned.ConditionedData(
+        x=x, ys_obj=ys[:num_obj], ys_con=ys[num_obj:], fidelities=fitter.fidelities,
+        pareto_set=torch.rand((pareto_points, x.shape[1]), generator=g, dtype=x.dtype,
+                              device=x.device),
+        pareto_front=torch.randn((pareto_points, num_obj), generator=g, dtype=x.dtype,
+                                 device=x.device),
+        front_mask=torch.ones((pareto_points,), dtype=torch.bool, device=x.device),
+        thresholds=torch.as_tensor(fitter.thresholds_cons, dtype=x.dtype, device=x.device),
+        row_weights=fitter.row_weights)
+    phase = conditioned.ConditionedPhase(obj.params, con.params, obj.consts, con.consts,
+                                         model.config, data, 0.001, 1e-8, x.shape[0],
+                                         chunk=steps)
+    return phase, data
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=490)
     parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--phase", choices=("train", "cond"), default="train")
     args = parser.parse_args()
 
-    from mobocmf_tpu_torch.fit import trainer
+    from mobocmf_tpu_torch.fit import conditioned, graphs, trainer
     from mobocmf_tpu_torch.linalg import chol
 
     fitter, model, ys = build_model(args.points)
-    num_data = torch.tensor(float(fitter.num_real), device="cuda")
-
     x = fitter.x_train
-    phase = trainer.TrainPhase(model, x, ys, fitter.fidelities, 0.001, "all_free", x.shape[0],
-                               fitter.row_weights, num_data, chunk=args.steps)
+    if args.phase == "train":
+        num_data = torch.tensor(float(fitter.num_real), device="cuda")
+        phase = trainer.TrainPhase(model, x, ys, fitter.fidelities, 0.001, "all_free",
+                                   x.shape[0], fitter.row_weights, num_data, chunk=args.steps)
 
-    def run(steps):
-        eps, _ = trainer.draw_chunk(fitter.generator, model.config, steps, ys.shape[0],
-                                    x.shape[0], x.shape[0], x.dtype, x.device)
-        return phase.run_chunk(eps, None)
+        def run(steps):
+            eps, _ = trainer.draw_chunk(fitter.generator, model.config, steps, ys.shape[0],
+                                        x.shape[0], x.shape[0], x.dtype, x.device)
+            return phase.run_chunk(eps, None)
+    else:
+        phase, data = cond_phase(fitter, model, ys, args.steps)
+
+        def run(steps):
+            return phase.run_chunk(conditioned.draw_chunk(fitter.generator, data, model.config,
+                                                          x.shape[0], steps))
 
     run(args.steps)  # warm up and capture: kernel build, cuBLAS handles, allocator
     torch.cuda.synchronize()
@@ -99,6 +137,9 @@ def main() -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "phase": args.phase,
+        "flat_adam": graphs.flat_adam(),
+        "fused_cond": conditioned.FUSED_COND_DEFAULT,
         "m": int(fitter.x_train.shape[0]),
         "blackboxes": int(ys.shape[0]),
         "steps": args.steps,

@@ -38,3 +38,26 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [leaf for a in tree for leaf in tree_leaves(a)]
     return [tree]
+
+
+
+def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
+    """`tree` with its leaves replaced by `leaves`, taken in tree_leaves'
+    order (dicts keep their own key order)."""
+    return _rebuild(tree, iter(leaves))
+
+
+def _rebuild(tree: Any, it) -> Any:
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle that would keep the leaves alive until the next
+    # garbage collection
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        done = {k: _rebuild(tree[k], it) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_rebuild(a, it) for a in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(a, it) for a in tree)
+    return next(it)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
+from mobocmf_tpu_torch.core.distances import compute_dist  # noqa: F401 (the JAX module's name)
 
 
 def create_path(folder: str):
@@ -34,12 +35,6 @@ def triu_indices(n: int, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, cols) of the upper triangle from diagonal `offset` on."""
     rows, cols = torch.triu_indices(n, n, offset=offset)
     return rows, cols
-
-
-def compute_dist(x: torch.Tensor) -> torch.Tensor:
-    """Squared distance matrix by the expansion trick (reference util.py:32-33)."""
-    sq = torch.sum(x**2, 1, keepdim=True)
-    return sq - 2.0 * x @ x.mT + sq.mT
 
 
 def preprocess_outputs(*args, device: DeviceLike = None):

@@ -5,7 +5,9 @@ Gains are compared at fixed x (1e-9), through the plain route (gradients
 on) and the K2 route (no gradients). The optimizers run different L-BFGS
 implementations, so they are compared by value from the same raw samples:
 the port's best must be at least the JAX package's, less 1e-6 (at f32:
-both candidates scored on the f64 surface, less the f32 surface's error)."""
+both candidates scored on the f64 surface, less the f32 surface's error).
+The gains and the search are also held with MOBOCMF_ACQ_INV=0 (states
+without L^{-1}) in both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -165,6 +167,66 @@ def test_optimize_all_fidelities_by_value_f32(fitters):
                                       fidelity, cand.float())
         surface_err = (at32.double() - at64).abs().max().item()
         assert at64[0].item() >= at64[1].item() - surface_err, (fidelity, at64, surface_err)
+
+
+@pytest.mark.parametrize("no_grad", [False, True], ids=["plain-route", "k2-route"])
+def test_gains_without_inverse_match_jax_and_inverse_route(fitters, monkeypatch, no_grad):
+    """ACQ_INV_SOLVES off: the states carry no L^{-1}; the all-fidelity and
+    per-fidelity gains equal the JAX package's with_inv=False gains (1e-9)
+    and the port's inverse route (rtol 1e-6, atol 1e-8, as
+    tests/test_fused_acq.py holds the JAX package's two routes)."""
+    (ju, jp) = _stacks(fitters)
+    xq = torch.as_tensor(XQ)
+    states_u = jtrainer.states_stacked(ju[0], ju[1], ju[4])
+    states_c = jtrainer.states_stacked(ju[2], ju[3], ju[4])
+    want = np.asarray(JJ._coupled_gain_all_stacked(*ju[:4], ju[4], jnp.asarray(XQ), states_u,
+                                                   states_c))
+    monkeypatch.setattr(JJ, "ACQ_INV_SOLVES", False)
+    with torch.set_grad_enabled(not no_grad):
+        stack = PJ._pair(*jp)
+        monkeypatch.setattr(PJ, "ACQ_INV_SOLVES", True)
+        inv = PJ._coupled_gain_all_stacked(stack, xq, PJ.pair_states(stack))
+        monkeypatch.setattr(PJ, "ACQ_INV_SOLVES", False)
+        states = PJ.pair_states(stack)
+        assert all(st.lk_inv is None for st in states)
+        got = PJ._coupled_gain_all_stacked(stack, xq, states)
+        for fidelity in (0, 1):
+            one = PJ.coupled_acq_stacked(*jp, fidelity, xq)
+            want_one = np.asarray(JJ.coupled_acq_stacked(*ju, fidelity, jnp.asarray(XQ)))
+            np.testing.assert_allclose(one.detach().numpy(), want_one, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got.detach().numpy(), inv.detach().numpy(), rtol=1e-6, atol=1e-8)
+
+
+def test_search_without_inverse_by_value(fitters, monkeypatch):
+    """The all-fidelity search with ACQ_INV_SOLVES off in both packages, from
+    the same raw samples: the port's values at least the JAX package's less
+    1e-6 (different L-BFGS implementations, as
+    test_optimize_all_fidelities_by_value),
+    each the JAX with_inv=False gain at the returned point (1e-9), and the
+    port's inverse-route search's values (rtol 1e-6, atol 1e-8)."""
+    (ju, jp) = _stacks(fitters)
+    key, raw_samples = jax.random.key(5), 40
+    raw = torch.as_tensor(np.asarray(jax.random.uniform(key, (raw_samples, 2),
+                                                        dtype=jnp.float64)))
+
+    def search():
+        return PJ.optimize_coupled_jes_all_fidelities(*jp, None, 2, raw_samples=raw_samples,
+                                                      maxiter=60, raw=raw)
+
+    _, vals_inv = search()
+    monkeypatch.setattr(JJ, "ACQ_INV_SOLVES", False)
+    monkeypatch.setattr(PJ, "ACQ_INV_SOLVES", False)
+    _, vals_j = JJ.optimize_coupled_jes_all_fidelities(*ju, key, 2, raw_samples=raw_samples,
+                                                       maxiter=60)
+    xs_p, vals_p = search()
+    assert bool(((xs_p >= 0) & (xs_p <= 1)).all())
+    assert np.all(vals_p.numpy() >= np.asarray(vals_j) - 1e-6), (vals_p, vals_j)
+    for fidelity in (0, 1):
+        at = JJ.coupled_acq_stacked(*ju, fidelity, jnp.asarray(xs_p[fidelity][None].numpy()))
+        np.testing.assert_allclose(vals_p[fidelity:fidelity + 1].numpy(), np.asarray(at),
+                                   rtol=1e-9)
+    np.testing.assert_allclose(vals_p.numpy(), vals_inv.numpy(), rtol=1e-6, atol=1e-8)
 
 
 def _lanes_fun(z):

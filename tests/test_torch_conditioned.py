@@ -1,7 +1,12 @@
 """Conditioned (theta / omega) training in the port against the JAX package
 at f64. The JAX loss draws x_tilde and the propagation normals from its
 key; the tests re-derive those draws (conditioned.py:128-130, 203-233) and
-hand them to the port."""
+hand them to the port. The port's two forms of the loss (fused, and the
+three forwards of MOBOCMF_FUSED_COND=0) are held to the JAX package's
+fused result, the same math on the same draws (tests/test_torch_variants.py
+holds the three forwards to the JAX package's own)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -84,22 +89,32 @@ def _jax_step_draws(key, num_obj, num_con, b, p, d=2, fm1=1):
             torch.as_tensor(np.asarray(eps_c)))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_fused_loss(num_con):
+    """JAX conditioned_loss(fused=True) and its gradient, once per problem."""
+    (op, cp, oc, cc, config, jdata), _ = _setup(num_con)
+    n = jdata.x.shape[0]
+
+    def jloss(ps):
+        return JC.conditioned_loss(ps[0], ps[1], oc, cc, config, jdata, jax.random.key(7), 1e-8,
+                                   jnp.arange(n), jdata.row_weights, fused=True)
+
+    return jax.value_and_grad(jloss)((op, cp))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three-forward"])
 @pytest.mark.parametrize("num_con", [2, 0])
-def test_conditioned_loss_value_and_gradients_match_jax(num_con):
+def test_conditioned_loss_value_and_gradients_match_jax(num_con, fused):
     (op, cp, oc, cc, config, jdata), (pm_o, pm_c, pdata) = _setup(num_con)
     n = jdata.x.shape[0]
     key = jax.random.key(7)
-
-    def jloss(ps):
-        return JC.conditioned_loss(ps[0], ps[1], oc, cc, config, jdata, key, 1e-8,
-                                   jnp.arange(n), jdata.row_weights, fused=True)
-
-    l_j, g_j = jax.value_and_grad(jloss)((op, cp))
+    l_j, g_j = _jax_fused_loss(num_con)
     x_tilde, eps_o, eps_c = _jax_step_draws(key, 2, num_con, n, 4)
     po = tree_map(lambda t: t.clone().requires_grad_(True), pm_o.params)
     pc = tree_map(lambda t: t.clone().requires_grad_(True), pm_c.params)
     loss = C.conditioned_loss(po, pc, pm_o.consts, pm_c.consts, pm_o.config, pdata, 1e-8,
-                              torch.arange(n), pdata.row_weights, x_tilde, eps_o, eps_c)
+                              torch.arange(n), pdata.row_weights, x_tilde, eps_o, eps_c,
+                              fused=fused)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(l_j), rtol=1e-9)
     # gradients at 1e-9 of each leaf's scale: entries that cancel in the
@@ -112,14 +127,21 @@ def test_conditioned_loss_value_and_gradients_match_jax(num_con):
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * max(scale, 1.0))
 
 
-def test_train_conditioned_matches_jax():
+@functools.lru_cache(maxsize=None)
+def _jax_fused_training(iters, lr):
+    (op, cp, oc, cc, config, jdata), _ = _setup(2, seed=3)
+    return JC.train_conditioned(op, cp, oc, cc, config, jdata, jax.random.key(21), iters, lr,
+                                1e-8, jdata.x.shape[0], fused=True)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three-forward"])
+def test_train_conditioned_matches_jax(fused):
     """Five full-batch steps with the JAX key chain's draws
     (train_conditioned_carry: split over iterations, then (batch, loss))."""
     (op, cp, oc, cc, config, jdata), (pm_o, pm_c, pdata) = _setup(2, seed=3)
     n, iters, lr = jdata.x.shape[0], 5, 0.01
     key = jax.random.key(21)
-    op_j, cp_j, losses_j = JC.train_conditioned(op, cp, oc, cc, config, jdata, key, iters, lr,
-                                                1e-8, n, fused=True)
+    op_j, cp_j, losses_j = _jax_fused_training(iters, lr)
     draws = []
     for k in jax.random.split(key, iters):
         _, kl = jax.random.split(k)
@@ -127,7 +149,7 @@ def test_train_conditioned_matches_jax():
         draws.append(C.StepDraws(None, x_tilde, torch.cat([eps_o, eps_c])))
     op_p, cp_p, losses_p = C.train_conditioned(
         pm_o.params, pm_c.params, pm_o.consts, pm_c.consts, pm_o.config, pdata, None, iters, lr,
-        1e-8, n, draws=draws)
+        1e-8, n, draws=draws, fused=fused)
     np.testing.assert_allclose(losses_p.numpy(), np.asarray(losses_j), rtol=1e-7)
     for a, b in zip(jax.tree.leaves((op_j, cp_j)), tree_leaves((op_p, cp_p))):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-7, atol=1e-9)

@@ -498,6 +498,74 @@ def test_captured_conditioned_chunks_match_eager_cpu_f64(cuda_device, monkeypatc
     _assert_rel(runs[1], runs[0])
 
 
+@pytest.mark.parametrize("batch_size", [40, 16])
+def test_captured_flat_adam_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_size):
+    """MOBOCMF_FLAT_ADAM=1 on both devices: the captured phase of
+    test_captured_chunks_match_eager_cpu_f64 with Adam on one flat tensor."""
+    monkeypatch.setenv("MOBOCMF_FLAT_ADAM", "1")
+    test_captured_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_size)
+
+
+@pytest.mark.parametrize("fused,flat", [(False, False), (True, True), (False, True)],
+                         ids=["three-forward", "flat-adam", "three-forward-flat-adam"])
+def test_captured_conditioned_variants_match_eager_cpu_f64(cuda_device, monkeypatch, fused,
+                                                            flat):
+    """The captured conditioned phase of
+    test_captured_conditioned_chunks_match_eager_cpu_f64 under
+    MOBOCMF_FUSED_COND=0 (the module's FUSED_COND_DEFAULT, which the chunked
+    phase reads at the call) and MOBOCMF_FLAT_ADAM=1: still 2 K1 launches a
+    step (the three forwards share one set of layer states)."""
+    from mobocmf_tpu_torch.fit import conditioned as C
+
+    monkeypatch.setattr(C, "FUSED_COND_DEFAULT", fused)
+    monkeypatch.setenv("MOBOCMF_FLAT_ADAM", "1" if flat else "0")
+    test_captured_conditioned_chunks_match_eager_cpu_f64(cuda_device, monkeypatch)
+
+
+def test_acquisition_without_inverse_on_card_f64(cuda_device, monkeypatch):
+    """MOBOCMF_ACQ_INV=0 on the card at f64: states without L^{-1}; the
+    gains against the inverse route (rtol 1e-6, atol 1e-8) and against the
+    CPU's solve route (1e-8 of the largest gain); the search's K2 launches
+    unchanged (K2 factors its own Gram) and its values against the inverse
+    route's (rtol 1e-6, atol 1e-8)."""
+    from mobocmf_tpu_torch.acquisition import jesmoc as J
+
+    x, fid, ys = _chunk_problem(30, seed=5)
+    xq = np.random.default_rng(6).uniform(size=(9, 2))
+    raw = torch.as_tensor(np.random.default_rng(7).uniform(size=(40, 2)))
+    gains, searches = {}, {}
+    for dev, inv in (("cpu", False), (cuda_device, True), (cuda_device, False)):
+        monkeypatch.setattr(J, "ACQ_INV_SOLVES", inv)
+        stacks = []
+        for epochs in (3, 8):
+            model = trainer.stack_models([
+                M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i), device=dev,
+                             dtype=torch.float64) for i, y in enumerate(ys)])
+            eps = torch.randn((epochs, 2, 1, 30), generator=torch.Generator().manual_seed(8),
+                              dtype=torch.float64).to(dev)
+            params, _ = trainer.train_phase_stacked(
+                model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
+                torch.as_tensor(fid, device=dev), epochs, 0.01, "all_free", 30, eps=eps)
+            stacks.append((params, model.consts))
+        pair = (*stacks[0], *stacks[1], model.config)
+        states = J.pair_states(J._pair(*pair))
+        assert all((st.lk_inv is None) != inv for st in states)
+        gains[(str(dev), inv)] = torch.stack([
+            J.coupled_acq_stacked(*pair, f, torch.as_tensor(xq, device=dev)).detach().cpu()
+            for f in (0, 1)])
+        if dev != "cpu":
+            fused_svgp.reset_counts()
+            _, vals = J.optimize_coupled_jes_all_fidelities(*pair, None, 2, raw_samples=40,
+                                                            maxiter=20, raw=raw.to(dev))
+            torch.cuda.synchronize()
+            searches[inv] = (vals.cpu(), fused_svgp.launches)
+    card = str(cuda_device)
+    torch.testing.assert_close(gains[(card, False)], gains[(card, True)], rtol=1e-6, atol=1e-8)
+    _assert_rel([gains[(card, False)]], [gains[("cpu", False)]])
+    assert searches[False][1] == searches[True][1] >= 1
+    torch.testing.assert_close(searches[False][0], searches[True][0], rtol=1e-6, atol=1e-8)
+
+
 def test_counters_under_replay(cuda_device):
     """K1's launches count the launches that ran (the capture records one,
     each replay runs one) and its escalations accumulate under replay."""

@@ -277,6 +277,47 @@ def test_conditioned_over_bb_dp_matches_unsharded(ranks, bb, batch_size):
             np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=5e-8)
 
 
+def test_three_forward_conditioned_over_bb_dp_matches_unsharded(ranks):
+    """MOBOCMF_FUSED_COND=0's three-forward loss over (bb, dp) = (2, 4),
+    minibatches of 6, against the unsharded three-forward phase on the same
+    draws, at test_conditioned_over_bb_dp_matches_unsharded's bounds: the
+    same three rules hold with x_tilde's own forward."""
+    obj, con, data = _conditioned_problem()
+    chunk = C.draw_chunk(torch.Generator().manual_seed(11), data, obj.config, 6, 4)
+    draws = [C.StepDraws(chunk.batch_idx[i], chunk.x_tilde[i], chunk.eps[i]) for i in range(4)]
+    op, cp, losses = C.train_conditioned(obj.params, con.params, obj.consts, con.consts,
+                                         obj.config, data, None, 4, 0.001, 1e-8, 6, draws=draws,
+                                         fused=False)
+    data_np = [None if a is None else a.numpy() for a in data]
+    draws_np = [tuple(a.numpy() for a in d) for d in draws]
+    want = tree_leaves(op) + tree_leaves(cp)
+    for ol, cl, got in ranks.run(R.conditioned, 2, model_to_numpy(obj), model_to_numpy(con),
+                                 data_np, 6, draws_np, 4, 0.001, 1e-8, False):
+        np.testing.assert_allclose(got, losses.numpy(), rtol=1e-9)
+        for a, b in zip(ol + cl, want):
+            np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=5e-8)
+
+
+def test_flat_adam_training_over_bb_dp_matches_unsharded(ranks, monkeypatch):
+    """MOBOCMF_FLAT_ADAM=1 on every rank and here: stacked minibatch training
+    over (bb, dp) = (2, 4), one flat gradient all-reduced over 'dp', against
+    the unsharded flat phase on the same draws, at
+    test_dp_training_matches_unsharded's bounds."""
+    monkeypatch.setenv("MOBOCMF_FLAT_ADAM", "1")
+    x, ys, fid, stacked = _model(24, 2, 2, _targets(4), seed=4)
+    eps, perms = trainer.draw_chunk(torch.Generator().manual_seed(6), stacked.config, 4, 4, 24,
+                                    7, F64, "cpu")
+    params, logs = trainer.train_phase_stacked(stacked, _t(x), _t(ys), _t(fid), 4, 0.01,
+                                               "fix_variational_hypers", 7, eps=eps, perms=perms)
+    got = ranks.run(R.train_stacked, 2, model_to_numpy(stacked), x, ys, fid, 4, 0.01,
+                    "fix_variational_hypers", 7, eps.numpy(), perms.numpy(), True)
+    for leaves, loss, kl in got:
+        np.testing.assert_allclose(loss, logs.loss.numpy(), rtol=1e-9)
+        np.testing.assert_allclose(kl, logs.kl.numpy(), rtol=1e-9)
+        for a, b in zip(leaves, tree_leaves(params)):
+            np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=5e-8)
+
+
 def test_gains_and_search_over_bb_match_unsharded(ranks):
     """The pair stack (4 blackboxes, 2 per 'bb' rank) on a (2, 4) mesh: the
     gains and the gradient of their sum in x at rtol 1e-7 / atol 1e-9 (the

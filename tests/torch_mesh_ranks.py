@@ -6,6 +6,8 @@ unsharded side (the port's or the JAX package's) and compares."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -56,10 +58,19 @@ def grid_eval(bb: int, grid):
 
 
 def train_stacked(bb: int, model_np, x, ys, fid, epochs, lr, mask_kind, batch_size, eps,
-                  perms=None):
-    params, logs = trainer.train_phase_stacked(
-        port_model(model_np), t64(x), t64(ys), t64(fid), epochs, lr, mask_kind, batch_size,
-        eps=t64(eps), perms=t64(perms), mesh=mesh(bb))
+                  perms=None, flat_adam=False):
+    """flat_adam: MOBOCMF_FLAT_ADAM=1 while the phase builds its optimizer."""
+    before = os.environ.get("MOBOCMF_FLAT_ADAM")
+    os.environ["MOBOCMF_FLAT_ADAM"] = "1" if flat_adam else "0"
+    try:
+        params, logs = trainer.train_phase_stacked(
+            port_model(model_np), t64(x), t64(ys), t64(fid), epochs, lr, mask_kind, batch_size,
+            eps=t64(eps), perms=t64(perms), mesh=mesh(bb))
+    finally:
+        if before is None:
+            os.environ.pop("MOBOCMF_FLAT_ADAM")
+        else:
+            os.environ["MOBOCMF_FLAT_ADAM"] = before
     return leaves_np(params), logs.loss.numpy(), logs.kl.numpy()
 
 
@@ -92,15 +103,16 @@ def inducing_predictive(bb: int, model_np, x, eps):
     return [(mu.numpy(), var.numpy()) for mu, var in out], len(calls)
 
 
-def conditioned(bb: int, obj_np, con_np, data_np, batch_size, draws_np, iters, lr, eps_const):
+def conditioned(bb: int, obj_np, con_np, data_np, batch_size, draws_np, iters, lr, eps_const,
+                fused=None):
     """Conditioned training over ('bb', 'dp') with the draws given: (obj
-    leaves, con leaves, losses)."""
+    leaves, con leaves, losses). fused: the loss's form (None: the default)."""
     om, cm = port_model(obj_np), port_model(con_np)
     data = C.ConditionedData(*[t64(a) for a in data_np])
     draws = [C.StepDraws(t64(b), t64(xt), t64(e)) for b, xt, e in draws_np]
     op, cp, losses = C.train_conditioned(
         om.params, cm.params, om.consts, cm.consts, om.config, data, None, iters, lr, eps_const,
-        batch_size, draws=draws, mesh=mesh(bb))
+        batch_size, draws=draws, mesh=mesh(bb), fused=fused)
     return leaves_np(op), leaves_np(cp), losses.numpy()
 
 
