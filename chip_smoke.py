@@ -26,8 +26,11 @@
 4. checks the f64 CUDA path against the port's CPU path (which the CPU
    tests hold against the JAX package) on a small problem, and the K2
    route of the acquisition predictive against the plain route at f64;
-   then the phases replayed from CUDA graphs (mobocmf_tpu_torch/fit/
-   graphs.py) against the CPU's eager steps from the same draws at f64: a
+   the f64 all-fidelity search of a small trained state and one f64
+   device polish on the card against the CPU's (both optax's L-BFGS,
+   acquisition/lbfgs.py: points 1e-8, values 1e-10); then the phases
+   replayed from CUDA graphs (mobocmf_tpu_torch/fit/graphs.py) against
+   the CPU's eager steps from the same draws at f64: a
    full-batch, a minibatch and a conditioned phase cut into chunks of 2
    steps (two chunk boundaries and a remainder) and an exact-GP adam_fit,
    with K1's launches equal to one eager step's times the steps;
@@ -97,8 +100,16 @@
    MOOP on the same samples and grid; K1 and K2 launch on every rank,
    counted per rank and per stage;
 11. prints, for every path, its captured phases' steps per second with the
-   capture seconds and replays, each phase's seconds, the kernel line and,
-   last, {"ok": true, "device": {...}}.
+   capture seconds and replays, each phase's seconds, and for every path
+   that searches or polishes its L-BFGS runs (`[search]` lines: seconds,
+   iterations, evaluations per iteration, line-search steps per lane and
+   iteration, lanes ended at gtol or at maxiter, with a failed line
+   search or on a non-finite point; each mesh rank's), the kernel line
+   and, last, {"ok": true, "device": {...}}.
+
+Every float32 L-BFGS run (the searches of every path, the device polish)
+is cut to SEARCH_ITERS iterations: the depth, not the width, of each
+search; `python -m mobocmf_tpu_torch.profile_search` times them whole.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -128,6 +139,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
 COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
+# every float32 L-BFGS run (search or polish) is cut to this depth (200 and
+# 100 iterations in a BO iteration): at f32 nearly every zoom line search
+# runs its 20 steps, about 20 evaluations an iteration (PERF.md), so full
+# depth would take the script past its time limit
+SEARCH_ITERS = 20
 # chunk size of the captured reference phases (5 steps: 2 + 2 + 1)
 REFERENCE_CHUNK = 2
 # K2 on the main path's f32 states against the plain route, from the H100
@@ -429,7 +445,80 @@ def phase_reference(P) -> None:
           f"{rel:.3e}, K2 launches {k2_calls}", flush=True)
     check(k2_calls == 1, f"the no-grad predictive launched K2 {k2_calls} times, not once")
     check(rel < 1e-9, f"the K2 route differs from the plain route by {rel:.3e}")
+    search_reference(P)
     captured_reference(P)
+
+
+SEARCH_NAMES = [("o1", False), ("o2", False), ("c1", True)]
+
+
+def search_reference(P) -> None:
+    """The f64 search and the f64 device polish on the card against the
+    CPU port (which the CPU tests hold to the JAX package's optax L-BFGS):
+    the all-fidelity search of a small trained and conditioned state (14
+    points, 3 blackboxes, 5 + 5 epochs) from 40 fixed raw points, and one
+    polish of RFF prior samples; points within 1e-8, values 1e-10."""
+    tree_map = P.tree_map
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(14, 2))
+    fid = np.arange(14) % 2
+    ys = [np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0],
+          0.3 - np.sum((x - 0.5) ** 2, 1)]
+    f = P.BlackBoxMFDGPFitter(2, 14, num_epochs_1=5, num_epochs_2=5, opt_grid_size=20,
+                              pareto_set_size=4, seed=1, device="cpu", dtype=torch.float64)
+    for (name, is_con), y in zip(SEARCH_NAMES, ys):
+        f.initialize_mfdgp(x, y, fid, name, is_constraint=is_con)
+    f.train_mfdgps()
+    cond = f.copy_uncond()
+    cond.sample_and_store_pareto_solution()
+    cond.train_conditioned_mfdgps()
+    su = P.trainer.stack_models([f.get_model(n, c) for n, c in SEARCH_NAMES])
+    sc = P.trainer.stack_models([cond.get_model(n, c) for n, c in SEARCH_NAMES])
+    raw = torch.rand((40, 2), generator=torch.Generator().manual_seed(11), dtype=torch.float64)
+    out = []
+    for dev in ("cpu", "cuda"):
+        pair = [tree_map(lambda t: t.to(dev), t) for t in (su.params, su.consts, sc.params,
+                                                            sc.consts)]
+        xs, vals = P.jesmoc.optimize_coupled_jes_all_fidelities(
+            *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
+        out.append((xs.cpu(), vals.cpu(), dict(P.lbfgs.last_stats)))
+    (x_c, v_c, st_c), (x_g, v_g, st_g) = out
+    dx = (x_g - x_c).abs().max().item()
+    dv = ((v_g - v_c).abs() / v_c.abs().clamp_min(1e-300)).max().item()
+    print(f"[reference] f64 search card vs CPU: points {x_g.tolist()}, max |dx| {dx:.3e}, "
+          f"values max rel diff {dv:.3e}; iterations per lane card {st_g['lane_iterations']}, "
+          f"CPU {st_c['lane_iterations']}; evaluations {st_g['evaluations']} / "
+          f"{st_c['evaluations']}", flush=True)
+    check(dx <= 1e-8 and dv <= 1e-10,
+          f"the f64 search on the card is off the CPU's: |dx| {dx:.3e}, values {dv:.3e}")
+
+    samples = [P.rff.sample_prior(torch.Generator().manual_seed(i), 2, 2, n_features=50,
+                                  device="cpu") for i in range(3)]
+    grid = np.random.default_rng(5).uniform(size=(80, 2))
+    ends = []
+    for dev in ("cpu", "cuda"):
+        fns = [P.SampledFunction(P.rff.eval_sample_fn, tree_map(lambda t: t.to(dev), smp))
+               for smp in samples]
+        m = P.MOOP(fns[:2], fns[2:], input_dim=2, feasible_values=np.array([-0.5]),
+                   polish="device")
+        with torch.no_grad():
+            cons = torch.stack([fn(torch.as_tensor(grid, device=dev)) for fn in fns[2:]])
+            evals = fns[0](torch.as_tensor(grid, device=dev)).cpu().numpy()
+        feas = m._feasible_mask(cons.cpu().numpy(), True)
+        got = m.optimize_obj_globally_device(
+            0, evals, feas, grid, torch.zeros((), dtype=torch.float64, device=dev))
+        value = None if got is None else fns[0](torch.as_tensor(got, device=dev)).item()
+        ends.append((got, value, dict(P.lbfgs.last_stats)))
+    (p_c, f_c, st_c), (p_g, f_g, st_g) = ends
+    check(p_c is not None and p_g is not None,
+          f"the f64 device polish accepted no point (CPU {p_c}, card {p_g})")
+    dx, dv = float(np.abs(p_g - p_c).max()), abs(f_g - f_c) / max(abs(f_c), 1e-300)
+    print(f"[reference] f64 device polish card vs CPU: point {p_g.tolist()}, max |dx| {dx:.3e}, "
+          f"value rel diff {dv:.3e}; evaluations {st_g['evaluations']} / {st_c['evaluations']}, "
+          f"failed line searches {st_g['failed_searches']} / {st_c['failed_searches']}",
+          flush=True)
+    check(dx <= 1e-8 and dv <= 1e-10,
+          f"the f64 device polish on the card is off the CPU's: |dx| {dx:.3e}, value {dv:.3e}")
 
 
 def rel_diff(got, want) -> float:
@@ -589,6 +678,80 @@ class StepsLog:
         for name, fn in self.saved:
             setattr(self.P.graphs.Steps, name, fn)
         return False
+
+
+class SearchLog:
+    """Every L-BFGS run inside the block (acquisition/lbfgs.py::lbfgs_lanes,
+    called by the candidate searches of acquisition/optimize.py and by the
+    MOOP's device polish): its kind, seconds (synchronized on both ends)
+    and lbfgs.last_stats. Every float32 run is cut to SEARCH_ITERS
+    iterations (float64 runs keep theirs). Imports the port itself, so
+    that a rank process of the mesh phase can keep one too."""
+
+    def __enter__(self):
+        from mobocmf_tpu_torch.acquisition import lbfgs, optimize
+        from mobocmf_tpu_torch.moop import moop
+        from mobocmf_tpu_torch.profiling import patched
+
+        self.runs, inner = [], lbfgs.lbfgs_lanes
+
+        def recorded(kind):
+            def run(fun, z0, maxiter, *args, **kwargs):
+                if z0.dtype == torch.float32:
+                    maxiter = min(maxiter, SEARCH_ITERS)
+                sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+                sync()
+                t0 = time.perf_counter()
+                out = inner(fun, z0, maxiter, *args, **kwargs)
+                sync()
+                self.runs.append((kind, time.perf_counter() - t0, dict(lbfgs.last_stats)))
+                return out
+            return run
+
+        self.stack = contextlib.ExitStack()
+        self.stack.enter_context(patched(optimize, "lbfgs_lanes", recorded("search")))
+        self.stack.enter_context(patched(moop, "lbfgs_lanes", recorded("polish")))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+        return False
+
+
+def search_summary(label, runs) -> dict:
+    """One `[search]` line per kind of L-BFGS run of a path (SearchLog):
+    runs, seconds, iterations, evaluations per iteration, line-search steps
+    per lane and iteration, how the lanes ended. Fails unless every lane
+    ended at gtol or at maxiter."""
+    out = {}
+    for kind in sorted({k for k, _, _ in runs}):
+        rs = [(sec, st) for k, sec, st in runs if k == kind]
+        its = [st["iterations"] for _, st in rs]
+        evals = sum(st["evaluations"] for _, st in rs)
+        lane_its = sum(sum(st["lane_iterations"]) for _, st in rs)
+        ls_mean = sum(st["ls_steps_mean"] * sum(st["lane_iterations"]) for _, st in rs)
+        lanes = sum(st["lanes"] for _, st in rs)
+        row = dict(runs=len(rs), seconds=sum(sec for sec, _ in rs),
+                   iterations=sum(its), evaluations=evals,
+                   evals_per_iteration=evals / max(sum(its), 1),
+                   ls_steps_max=max(st["ls_steps_max"] for _, st in rs),
+                   ls_steps_mean=ls_mean / max(lane_its, 1), lanes=lanes,
+                   at_gtol=sum(st["at_gtol"] for _, st in rs),
+                   at_maxiter=sum(st["at_maxiter"] for _, st in rs),
+                   failed=sum(st["failed_searches"] for _, st in rs),
+                   nonfinite=sum(st["nonfinite"] for _, st in rs))
+        print(f"[search] {label} {kind}: {row['runs']} run(s) in {row['seconds']:.3f} s "
+              f"({min(sec for sec, _ in rs):.3f}-{max(sec for sec, _ in rs):.3f} s each); "
+              f"iterations {min(its)}-{max(its)}; {evals} evaluations, "
+              f"{row['evals_per_iteration']:.3f} per iteration; line-search steps per lane and "
+              f"iteration max {row['ls_steps_max']}, mean {row['ls_steps_mean']:.3f}; of {lanes} "
+              f"lanes {row['at_gtol']} ended at gtol, {row['at_maxiter']} at maxiter, "
+              f"{row['failed']} had a failed line search, {row['nonfinite']} ended on a "
+              f"non-finite point", flush=True)
+        check(all(st["at_gtol"] + st["at_maxiter"] == st["lanes"] for _, st in rs),
+              f"{label} {kind}: L-BFGS lanes {[st for _, st in rs]}")
+        out[kind] = row
+    return out
 
 
 def steps_summary(label, records) -> dict:
@@ -772,20 +935,23 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
         for name, _, is_con in blackboxes:
             jes.add_blackbox(f, name, cost_evaluation=(1.0, 10.0)[f], is_constraint=is_con)
     (x_next, fid_next), t_acq, k1_acq, _, k2_acq = staged(P, jes.get_nextpoint_coupled)
-    vals, lb = jes.last_values, P.optimize.last_stats
+    vals, lb = jes.last_values, P.lbfgs.last_stats
     print(f"[{label}] acquisition search (all fidelities, 200 raw samples, 5 restarts each): "
           f"{t_acq:.3f} s; x={x_next.tolist()} fidelity={fid_next}; values {vals.tolist()}; "
           f"K1 launches {k1_acq}; K2 launches {k2_acq}", flush=True)
-    print(f"[{label}] L-BFGS: {lb['iterations']} iterations, {lb['evaluations']} evaluations; "
-          f"of {lb['lanes']} lanes {lb['at_gtol']} ended at gtol, {lb['stuck']} on a line search "
-          f"with no decrease, {lb['at_maxiter']} at maxiter", flush=True)
+    print(f"[{label}] L-BFGS: {lb['iterations']} iterations, {lb['evaluations']} evaluations "
+          f"({lb['evaluations'] / max(lb['iterations'], 1):.3f} per iteration); line-search "
+          f"steps per lane and iteration max {lb['ls_steps_max']}, mean "
+          f"{lb['ls_steps_mean']:.3f}; of {lb['lanes']} lanes {lb['at_gtol']} ended at gtol, "
+          f"{lb['at_maxiter']} at maxiter, {lb['failed_searches']} had a failed line search, "
+          f"{lb['nonfinite']} ended on a non-finite point", flush=True)
     check(tuple(x_next.shape) == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all()),
           f"{label}: candidate {x_next.tolist()} outside [0, 1]^2")
     check(fid_next in (0, 1), f"{label}: fidelity {fid_next}")
     check(bool(torch.isfinite(vals).all()) and bool((vals >= 0).all()),
           f"{label}: acquisition values {vals.tolist()}")
     check(k2_acq >= 1, f"{label}: the screening did not launch K2")
-    check(lb["at_gtol"] + lb["stuck"] + lb["at_maxiter"] == lb["lanes"] == 10,
+    check(lb["at_gtol"] + lb["at_maxiter"] == lb["lanes"] == 10,
           f"{label}: L-BFGS lanes {lb}")
 
     # the f32 surface is not the model's: score each fidelity's candidate on
@@ -992,7 +1158,7 @@ def phase_variants(P, blackboxes) -> dict:
     (VARIANT_STEPS + VARIANT_STEPS epochs), one Pareto sample, then
     train_conditioned_mfdgps (VARIANT_STEPS steps) fused, three-forward and
     flat from the same trained models and Pareto solution, and the
-    all-fidelity search (200 raw samples, 200 L-BFGS iterations) with
+    all-fidelity search (200 raw samples, SEARCH_ITERS L-BFGS iterations) with
     ACQ_INV_SOLVES on and off from the same raw samples. Prints steps/s
     without the capture, capture seconds and K1 / K2 launches per setting
     and fails unless K1's launches per step are equal under every setting.
@@ -1356,9 +1522,11 @@ def mesh_loop_rank(log_dir: str) -> dict:
     fused_svgp.reset_counts()
     sharding.reset_counts()
     t0 = time.perf_counter()
-    state = loop.run_bo_loop(blackboxes, x_init, fid_init, config)
+    with SearchLog() as searches:
+        state = loop.run_bo_loop(blackboxes, x_init, fid_init, config)
     torch.cuda.synchronize(dev)
     out = dict(wall=time.perf_counter() - t0, k1=chol.launches, k2=fused_svgp.launches,
+               searches=[(kind, sec, st) for kind, sec, st in searches.runs],
                collective_seconds=sharding.seconds, collectives=sharding.calls,
                memory=torch.cuda.max_memory_allocated(dev), moop_calls=len(calls),
                x=state.x, fid=state.fidelities, ys=state.ys, hv=state.hypervolumes,
@@ -1377,7 +1545,7 @@ def mesh_loop_rank(log_dir: str) -> dict:
 def print_dryrun(label: str, summary: dict, seconds: float) -> dict:
     """The mesh phase's lines for one dry run; its K1 / K2 launches per rank."""
     ranks = summary["ranks"]
-    stages = [k for k in ranks[0] if isinstance(ranks[0][k], dict)]
+    stages = list(summary["reference"])
     mem = [r["max_memory_bytes"] / 2**30 for r in ranks]
     coll = [sum(r[k]["collective_seconds"] for k in stages) for r in ranks]
     print(f"[mesh] {label}: mesh {summary['mesh']}, backend {summary['backend']}, transport "
@@ -1397,6 +1565,12 @@ def print_dryrun(label: str, summary: dict, seconds: float) -> dict:
               f"{summary['reference'][k]['k1']} / {summary['reference'][k]['k2']}); "
               f"collectives {ranks[0][k]['collectives']} (graph replays included) in "
               f"{ranks[0][k]['collective_seconds']:.3f} s of host time on rank 0", flush=True)
+    st = ranks[0]["search_stats"]
+    print(f"[search] mesh {label} search on every rank: {st['iterations']} iterations, "
+          f"{st['evaluations']} evaluations, line-search steps per lane and iteration max "
+          f"{st['ls_steps_max']}, mean {st['ls_steps_mean']:.3f}; of {st['lanes']} lanes "
+          f"{st['at_gtol']} ended at gtol, {st['at_maxiter']} at maxiter, "
+          f"{st['failed_searches']} had a failed line search", flush=True)
     k1 = [sum(r[k]["k1"] for k in stages) for r in ranks]
     k2 = [sum(r[k]["k2"] for k in stages) for r in ranks]
     check(all(a > 0 for a in k1) and all(b > 0 for b in k2),
@@ -1443,6 +1617,9 @@ def phase_mesh(P, root) -> dict:
         check(same, f"mesh (c): rank {r} ended with another BOState than rank 0")
         check(got["k1"] > 0 and got["k2"] > 0,
               f"mesh (c): rank {r} launched K1 {got['k1']}, K2 {got['k2']}")
+        search_summary(f"mesh (c) rank {r}", got["searches"])
+        check([st for _, _, st in got["searches"]] == [st for _, _, st in res[0]["searches"]],
+              f"mesh (c): rank {r}'s L-BFGS runs took other steps than rank 0's")
     fronts = res[0]["fronts"]
     check((fronts[0] is None) == (fronts[1] is None), f"mesh (c): sharded MOOP {fronts}")
     if fronts[0] is not None:
@@ -1777,7 +1954,7 @@ def main() -> int:
         return 2
     try:
         from mobocmf_tpu_torch import BlackBoxMFDGPFitter, _build
-        from mobocmf_tpu_torch.acquisition import optimize
+        from mobocmf_tpu_torch.acquisition import lbfgs, optimize
         from mobocmf_tpu_torch.acquisition.jesmoc import JESMOC_MFDGP, coupled_acq_stacked
         from mobocmf_tpu_torch.bench import bench_blackboxes
         from mobocmf_tpu_torch.bo import loop
@@ -1790,6 +1967,7 @@ def main() -> int:
         from mobocmf_tpu_torch.models import mfdgp as M
         from mobocmf_tpu_torch.profile_k2 import k2_split, yardstick_us
         from mobocmf_tpu_torch.profiling import device_ms, k2_problem, loop_ms, patched
+        from mobocmf_tpu_torch.moop.moop import MOOP, SampledFunction
         from mobocmf_tpu_torch.sampling import rff
         from mobocmf_tpu_torch.test_functions import synthetic as S
         from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
@@ -1825,7 +2003,8 @@ def main() -> int:
                             chol=chol, ops=ops, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
                             tree_map=tree_map, device_ms=device_ms, loop_ms=loop_ms,
                             JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
-                            optimize=optimize, rbf=rbf, ladder_jitter=ladder_jitter,
+                            optimize=optimize, lbfgs=lbfgs, rbf=rbf,
+                            ladder_jitter=ladder_jitter,
                             recommendation_model_pass=recommendation_model_pass,
                             k2_problem=k2_problem, k2_split=k2_split,
                             yardstick_us=yardstick_us, loop=loop, BOConfig=loop.BOConfig,
@@ -1833,13 +2012,17 @@ def main() -> int:
                             MESMOC_MFGP=MESMOC_MFGP, mesmoc_example=example_mesmoc_mfgp,
                             mfgp=mfgp, dtlz2_main=dtlz2_main, batch10d_main=batch10d_main,
                             patched=patched, conditioned=conditioned, graphs=graphs,
-                            exact_gp=exact_gp, jesmoc=jesmoc)
-        phase_seconds = {}
+                            exact_gp=exact_gp, jesmoc=jesmoc, MOOP=MOOP,
+                            SampledFunction=SampledFunction)
+        phase_seconds, searches = {}, {}
 
         def timed(name, fn, *args):
             t = time.perf_counter()
-            out = fn(*args)
+            with SearchLog() as log:
+                out = fn(*args)
             phase_seconds[name] = time.perf_counter() - t
+            if log.runs:
+                searches[name] = search_summary(name, log.runs)
             print(f"[phase] {name}: {phase_seconds[name]:.1f} s", flush=True)
             return out
 
@@ -1899,6 +2082,11 @@ def main() -> int:
         f"capture {st['capture_seconds']:.3f} s)" for name, st in steps.items()), flush=True)
     rounded = {k: round(v, 1) for k, v in phase_seconds.items()}
     print(f"[summary] phase seconds {json.dumps(rounded)}", flush=True)
+    print("[summary] L-BFGS runs per path (seconds, evaluations per iteration, mean line-search "
+          "steps per lane and iteration): " + "; ".join(
+              f"{name} {kind} {row['runs']} x ({row['seconds']:.3f} s, "
+              f"{row['evals_per_iteration']:.3f}, {row['ls_steps_mean']:.3f})"
+              for name, rows in searches.items() for kind, row in rows.items()), flush=True)
     small = k1[("f32-noladder", 1, 32)]
     print(card, flush=True)
     print(json.dumps({"kernels": [

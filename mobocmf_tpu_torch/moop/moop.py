@@ -30,7 +30,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mobocmf_tpu_torch.acquisition.optimize import _logit, batched_lbfgs
+from mobocmf_tpu_torch.acquisition.lbfgs import lbfgs_lanes
+from mobocmf_tpu_torch.acquisition.optimize import _logit
 from mobocmf_tpu_torch.parallel import sharding
 
 
@@ -278,9 +279,10 @@ class MOOP:
         """The JAX package's device polish (moop.py:205-260, 425-453): from
         the `num_starts` best feasible grid points (an argsort, so the
         starts are deterministic), minimize obj(x) + 1e6 * sum(max(c_lo -
-        c(x), 0)^2) over x = sigmoid(z) by L-BFGS for `iters` iterations,
-        every start a lane of one batched search (a lane stops early only
-        when its line search finds no decrease). The same accept rule as
+        c(x), 0)^2) over x = sigmoid(z) by optax's L-BFGS for `iters`
+        iterations (acquisition/lbfgs.py; every start a lane of one batched
+        search, each running all `iters`, as the JAX package's lax.scan
+        does). The same accept rule as
         SLSQP: the best feasible end point is returned only if it improves
         on the best feasible grid value."""
         obj, cons = self._objs[obj_idx], self._cons
@@ -297,12 +299,12 @@ class MOOP:
                 return torch.zeros((0, x.shape[0]), dtype=x.dtype, device=x.device)
             return torch.stack([c(x) for c in cons])
 
-        def loss(z):  # (..., R, d) -> (..., R): the lanes are independent
-            x = torch.sigmoid(z).reshape(-1, z.shape[-1])
+        def loss(z):  # (R, d) -> (R,): the lanes are independent
+            x = torch.sigmoid(z)
             viol = torch.clamp(c_lo[:, None] - cons_at(x), min=0.0)
-            return (obj(x) + mu_pen * torch.sum(viol**2, dim=0)).reshape(z.shape[:-1])
+            return obj(x) + mu_pen * torch.sum(viol**2, dim=0)
 
-        z = batched_lbfgs(loss, _logit(x0), iters, gtol=0.0)
+        z = lbfgs_lanes(loss, _logit(x0), iters)
         with torch.no_grad():
             xs = torch.clamp(torch.sigmoid(z), 0.0, 1.0)
             vals = obj(xs)

@@ -24,7 +24,7 @@ argmax within 1e-2 (relative, floor 1); the RFF values rtol 1e-5 / atol
 1e-5; the inducing-sharded predictive rtol 1e-6 / atol 1e-8 (the same
 untrained model either way, its Kzz gathered from row blocks: the
 factor's rounding grows with Kzz's condition at m = 2048). Every rank must return the same search
-result (its line searches took the same branches).
+result, its L-BFGS having taken the same line-search steps (lbfgs.last_stats).
 
 The dry run is float64, the only precision at which these checks hold:
 at the models' init (likelihood noise 1e-6) an f32 ELBO moves by 0.3 %
@@ -187,7 +187,7 @@ class _Stage:
 def body(size: Size, bb: int, dp: int, mesh, device) -> dict:
     """The dry run's stages over `mesh` (None: unsharded) for a (bb, dp)
     layout; plain results (numpy) and this process's per-stage counts."""
-    from mobocmf_tpu_torch.acquisition import jesmoc
+    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs
     from mobocmf_tpu_torch.fit import conditioned as C
     from mobocmf_tpu_torch.fit import trainer
     from mobocmf_tpu_torch.models import mfdgp as M
@@ -311,6 +311,7 @@ def body(size: Size, bb: int, dp: int, mesh, device) -> dict:
         xs, vals = jesmoc.optimize_coupled_jes_all_fidelities(
             *pair, gen, d, num_restarts=restarts, raw_samples=raw, maxiter=iters, mesh=mesh)
     res["search"] = (_np(xs), _np(vals))
+    res["search_stats"] = dict(lbfgs.last_stats)
     res["pair"] = pair  # the models, for re-scoring the search unsharded
     if device.type == "cuda":
         res["max_memory_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -388,6 +389,9 @@ def compare(ranks: list, ref: dict, device) -> list:
         _check(np.array_equal(xs, ranks[0]["search"][0]) and
                np.array_equal(vals, ranks[0]["search"][1]),
                f"rank {r}: the search's result differs from rank 0's")
+        _check(out["search_stats"] == ranks[0]["search_stats"],
+               f"rank {r}: the search's L-BFGS took other steps than rank 0's: "
+               f"{out['search_stats']} against {ranks[0]['search_stats']}")
         for k, st in out["stages"].items():
             want = ref["stages"][k]
             _check((st["k1"], st["k2"]) == (want["k1"], want["k2"]),
@@ -403,7 +407,7 @@ def compare(ranks: list, ref: dict, device) -> list:
                f"{v}, re-scored {check}")
     return [dict(rank=r, **{k: out["stages"][k] for k in out["stages"]},
                  max_memory_bytes=out.get("max_memory_bytes"), transport=out["transport"],
-                 predictive_err=out["predictive_err"])
+                 predictive_err=out["predictive_err"], search_stats=out["search_stats"])
             for r, out in enumerate(ranks)]
 
 

@@ -1,0 +1,240 @@
+"""The candidate search and the MOOP's device polish on the card: this
+checkout's L-BFGS (optax's, acquisition/lbfgs.py) against the one of
+another checkout's acquisition/optimize.py, on the same states.
+
+    python -m mobocmf_tpu_torch.profile_search --tree PATH [--paths bc512,b128,...]
+        [--json PATH]
+    python -m mobocmf_tpu_torch.profile_search --tree PATH --device cpu --small  # rehearsal
+
+For each path it trains one state at the path's width (f32 on the card),
+conditions it on a Pareto sample as JESMOC_MFDGP does, and runs the
+all-fidelity search (jesmoc.optimize_coupled_jes_all_fidelities, 5
+restarts per fidelity) from raw points fixed by a seed, once with the
+`optimize_acqf_box_multi` of PATH's acquisition/optimize.py and once with
+this checkout's, in turns (other, this, this, other):
+- bc512: Branin, Currin and a disk constraint at 2 fidelities, 490 points
+  padded to m = 512, d = 2, 100 + 100 epochs, 100 conditioned steps, 200
+  raw samples, maxiter 200 (chip_smoke.py's bc512);
+- b128: the same with a second disk, 120 points (m = 128), 50 + 50 epochs;
+- dtlz2_2048: example_dtlz2_2048's 4 objectives at 3 fidelities, 2040
+  points (m = 2048), d = 6, 10 + 20 epochs, 20 conditioned steps, its
+  search's 64 raw samples and maxiter 15;
+- batch10d: example_batch_bo_10d's problem drawn on the CPU (2
+  objectives, 1 constraint, d = 10, 40 points, m = 48), 10 + 20 epochs,
+  20 conditioned steps, maxiter 200 (one all-fidelity search; the example
+  makes 16 penalized ones);
+- polish: one MOOP device polish (5 starts, 100 iterations) of bc512's
+  first objective's RFF posterior sample under its constraint's, with
+  PATH's `batched_lbfgs` (gtol 0, as its MOOP called it) and this
+  checkout's `lbfgs_lanes`.
+Prints per run the seconds (synchronized on both ends), iterations,
+evaluations and evaluations per iteration, how the lanes ended, and this
+checkout's line-search steps per lane and iteration; then the card's name
+and power limit. With --json, writes the rows to PATH. The other
+checkout's optimize.py must take the arguments this checkout's does and
+import nothing of the package (the backtracking search before optax's did
+so).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 7
+
+
+def _other_optimize(tree: str):
+    """acquisition/optimize.py of the checkout at `tree`, loaded by its path."""
+    path = Path(tree) / "mobocmf_tpu_torch" / "acquisition" / "optimize.py"
+    spec = importlib.util.spec_from_file_location("_other_optimize", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _paths(small: bool) -> dict:
+    """Per path: blackboxes as (name, fns per fidelity, is_constraint), the
+    points per fidelity, d, epochs, conditioned steps, raw samples, maxiter."""
+    from mobocmf_tpu_torch.examples.example_batch_bo_10d import build_problem
+    from mobocmf_tpu_torch.examples.example_dtlz2_2048 import NUM_OBJ, mf_objective
+    from mobocmf_tpu_torch.test_functions import synthetic as S
+
+    def disk(radius):
+        def fn(x):
+            return S.disk_constraint(x, radius=radius)
+        return fn
+
+    bc = [("branin", (S.branin_scaled_low, S.branin_scaled), False),
+          ("currin", (S.currin_low, S.currin), False),
+          ("disk", (S.disk_constraint, S.disk_constraint), True)]
+    b10 = [(b.name, tuple(b.fns), b.is_constraint) for b in build_problem(torch.device("cpu"))]
+    dtlz = [(f"obj{i + 1}", tuple(mf_objective(i)), False) for i in range(NUM_OBJ)]
+    cut = 8 if small else 1
+    return {
+        "bc512": (bc, (368 // cut, 122 // cut), 2, (100 // cut, 100 // cut), 100 // cut, 200, 200),
+        "b128": (bc + [("disk04", (disk(0.4), disk(0.4)), True)], (90 // cut, 30 // cut), 2,
+                 (50 // cut, 50 // cut), 100 // cut, 200, 200),
+        "dtlz2_2048": (dtlz, (1020 // cut, 510 // cut, 510 // cut), 6, (10, 20), 20, 64, 15),
+        "batch10d": (b10, (30, 10), 10, (10, 20), 20, 200, 200),
+    }
+
+
+def _state(spec, device, dtype):
+    """The path's unconditioned and conditioned stacks, trained and
+    conditioned as JESMOC_MFDGP does, outputs standardized per blackbox."""
+    from mobocmf_tpu_torch.fit import trainer
+    from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
+
+    blackboxes, counts, d, (e1, e2), cond_steps, _, _ = spec
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(size=(sum(counts), d))
+    fid = np.concatenate([np.full(c, f) for f, c in enumerate(counts)]).astype(int)
+    fitter = BlackBoxMFDGPFitter(
+        num_fidelities=len(counts), batch_size=x.shape[0], num_epochs_1=e1, num_epochs_2=e2,
+        seed=SEED, pad_data=True, device=device, dtype=dtype)
+    for name, fns, is_con in blackboxes:
+        y = np.empty(x.shape[0])
+        for f, fn in enumerate(fns):
+            y[fid == f] = np.asarray(fn(x[fid == f])).reshape(-1)
+        mu, sd = float(y.mean()), float(y.std())
+        fitter.initialize_mfdgp(x, (y - mu) / sd, fid, name, is_constraint=is_con,
+                                threshold_constraint=-mu / sd if is_con else 0.0)
+    fitter.train_mfdgps()
+    cond = fitter.copy_uncond()
+    cond.num_epochs_2 = cond_steps
+    cond.sample_and_store_pareto_solution()
+    cond.train_conditioned_mfdgps()
+    names = [(n, c) for n, _, c in blackboxes]
+    su = trainer.stack_models([fitter.get_model(n, c) for n, c in names])
+    sc = trainer.stack_models([cond.get_model(n, c) for n, c in names])
+    return (su.params, su.consts, sc.params, sc.consts, su.config), cond
+
+
+def _timed(fn, device):
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _row(path, which, seconds, stats, values=None) -> dict:
+    its = max(stats["iterations"], 1)
+    row = dict(path=path, optimizer=which, seconds=seconds, iterations=stats["iterations"],
+               evaluations=stats["evaluations"], evals_per_iteration=stats["evaluations"] / its,
+               lanes=stats["lanes"], at_gtol=stats["at_gtol"], at_maxiter=stats["at_maxiter"],
+               ls_steps_mean=stats.get("ls_steps_mean"), ls_steps_max=stats.get("ls_steps_max"),
+               failed_searches=stats.get("failed_searches"), stuck=stats.get("stuck"),
+               values=values)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def search_rows(path, spec, other, device, dtype) -> list:
+    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs, optimize
+    from mobocmf_tpu_torch.profiling import patched
+
+    pair, _ = _state(spec, device, dtype)
+    d, raw_samples, maxiter = spec[2], spec[5], spec[6]
+    raw = torch.rand((raw_samples, d), generator=torch.Generator().manual_seed(SEED + 1),
+                     dtype=dtype).to(device)
+    rows = []
+    for which in ("other", "this", "this", "other"):
+        mod = other if which == "other" else optimize
+        with patched(jesmoc, "optimize_acqf_box_multi", mod.optimize_acqf_box_multi):
+            (xs, vals), seconds = _timed(lambda: jesmoc.optimize_coupled_jes_all_fidelities(
+                *pair, None, d, raw_samples=raw_samples, maxiter=maxiter, raw=raw), device)
+        stats = other.last_stats if which == "other" else lbfgs.last_stats
+        rows.append(_row(path, which, seconds, stats, vals.tolist()))
+    return rows
+
+
+def polish_rows(spec, other, device, dtype) -> list:
+    """One device polish of the bc512 state's first objective (see the
+    module docstring), with each optimizer."""
+    from mobocmf_tpu_torch.acquisition import lbfgs
+    from mobocmf_tpu_torch.moop import moop
+    from mobocmf_tpu_torch.profiling import patched
+    from mobocmf_tpu_torch.sampling import rff
+
+    _, cond = _state(spec, device, dtype)
+    m = moop.MOOP([moop.SampledFunction(rff.eval_sample_fn, s) for s in cond.samples_objs],
+                  [moop.SampledFunction(rff.eval_sample_fn, s) for s in cond.samples_cons],
+                  input_dim=2, feasible_values=-1.0 * np.asarray(cond.thresholds_cons),
+                  polish="device")
+    grid = np.random.default_rng(SEED).uniform(size=(1000, 2))
+    like = torch.zeros((), dtype=dtype, device=device)
+    with torch.no_grad():
+        g = torch.as_tensor(grid, dtype=dtype, device=device)
+        evals = m._objs[0](g).double().cpu().numpy()
+        cons = torch.stack([c(g) for c in m._cons]).double().cpu().numpy()
+    feas = m._feasible_mask(cons, True)
+    if feas is None:
+        feas = np.ones(grid.shape[0], dtype=bool)
+
+    def parent_lanes(fun, z0, iters, gtol=None):
+        # its trial steps come as (k, lanes, d): the loss is pointwise in rows
+        def flat(z):
+            return fun(z.reshape(-1, z.shape[-1])).reshape(z.shape[:-1])
+        return other.batched_lbfgs(flat, z0, iters, gtol=0.0)
+
+    rows = []
+    for which in ("other", "this", "this", "other"):
+        impl = parent_lanes if which == "other" else lbfgs.lbfgs_lanes
+        with patched(moop, "lbfgs_lanes", impl):
+            got, seconds = _timed(
+                lambda: m.optimize_obj_globally_device(0, evals, feas, grid, like), device)
+        stats = other.last_stats if which == "other" else lbfgs.last_stats
+        value = None if got is None else float(m._objs[0](torch.as_tensor(
+            got, dtype=dtype, device=device)).item())
+        rows.append(_row("polish", which, seconds, stats, value))
+    return rows
+
+
+def card_name_and_power_limit() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
+
+
+def main(argv=None) -> list:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--tree", required=True, help="the other checkout")
+    parser.add_argument("--paths", default="bc512,b128,dtlz2_2048,batch10d,polish")
+    parser.add_argument("--device", default=None)
+    parser.add_argument("--small", action="store_true", help="cut the points and epochs 8x")
+    parser.add_argument("--json", default=None)
+    args = parser.parse_args(argv)
+    from mobocmf_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(args.device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    other = _other_optimize(args.tree)
+    specs = _paths(args.small)
+    rows = []
+    for path in args.paths.split(","):
+        if path == "polish":
+            rows += polish_rows(specs["bc512"], other, device, dtype)
+        else:
+            rows += search_rows(path, specs[path], other, device, dtype)
+    print(card_name_and_power_limit(), flush=True)
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(rows))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

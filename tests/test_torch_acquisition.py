@@ -2,10 +2,13 @@
 the port against the JAX package at f64.
 
 Gains are compared at fixed x (1e-9), through the plain route (gradients
-on) and the K2 route (no gradients). The optimizers run different L-BFGS
-implementations, so they are compared by value from the same raw samples:
-the port's best must be at least the JAX package's, less 1e-6 (at f32:
-both candidates scored on the f64 surface, less the f32 surface's error).
+on) and the K2 route (no gradients). Both packages search by optax's
+L-BFGS (the port's copy: acquisition/lbfgs.py), so from the same raw
+samples the all-fidelity search returns the JAX package's candidates (x
+to 1e-6, values to 1e-9, for twelve keys). The other searches are
+compared by value as well: the port's best must be at least the JAX
+package's, less 1e-6 (at f32: both candidates scored on the f64 surface,
+less the f32 surface's error).
 The gains and the search are also held with MOBOCMF_ACQ_INV=0 (states
 without L^{-1}) in both packages."""
 
@@ -20,10 +23,12 @@ from mobocmf_tpu.bo.loop import _recommendation_model_pass
 from mobocmf_tpu.fit import trainer as jtrainer
 from mobocmf_tpu.fit.fitter import BlackBoxMFDGPFitter as JFitter
 from mobocmf_tpu_torch.acquisition import jesmoc as PJ
+from mobocmf_tpu_torch.acquisition import lbfgs as LB
 from mobocmf_tpu_torch.acquisition import optimize as PO
 from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter as PFitter
 from mobocmf_tpu_torch.models.convert import model_from_numpy
+from test_torch_lbfgs import optax_lanes
 
 F64 = torch.float64
 NAMES = [("o1", False), ("o2", False), ("c1", True)]
@@ -139,10 +144,9 @@ def test_optimize_all_fidelities_by_value_f32(fitters):
     """The same search in float32, where the gradient seldom falls to gtol.
     The f32 surface is itself off the f64 one by up to ~1e-1 (cancelling
     variances in the log ratio; 7e-2 at a candidate here), so each package's f32 candidate is scored
-    on the f64 surface: the port's, whose lanes stop only at gtol, at
-    maxiter or on a line search with no decrease, scores at least the JAX
-    package's gtol-or-maxiter candidate, less the f32 surface's own error at
-    the two candidates (no f32 search resolves the surface more finely)."""
+    on the f64 surface: the port's scores at least the JAX package's, less
+    the f32 surface's own error at the two candidates (no f32 search
+    resolves the surface more finely)."""
     (ju, jp) = _stacks(fitters)
     ju32 = jax.tree.map(
         lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, ju[:4])
@@ -156,9 +160,9 @@ def test_optimize_all_fidelities_by_value_f32(fitters):
     xs_p, vals_p = PJ.optimize_coupled_jes_all_fidelities(
         pu.params, pu.consts, pc.params, pc.consts, pu.config, None, 2,
         raw_samples=raw_samples, maxiter=200, raw=raw)
-    st = PO.last_stats
+    st = LB.last_stats
     assert vals_p.dtype == torch.float32 and bool(((xs_p >= 0) & (xs_p <= 1)).all())
-    assert st["at_gtol"] + st["stuck"] + st["at_maxiter"] == st["lanes"] == 10
+    assert st["at_gtol"] + st["at_maxiter"] == st["lanes"] == 10
     xs_j = torch.as_tensor(np.array(xs_j), dtype=F64)
     for fidelity in (0, 1):
         cand = torch.stack([xs_p[fidelity].double(), xs_j[fidelity]])
@@ -227,58 +231,6 @@ def test_search_without_inverse_by_value(fitters, monkeypatch):
         np.testing.assert_allclose(vals_p[fidelity:fidelity + 1].numpy(), np.asarray(at),
                                    rtol=1e-9)
     np.testing.assert_allclose(vals_p.numpy(), vals_inv.numpy(), rtol=1e-6, atol=1e-8)
-
-
-def _lanes_fun(z):
-    """Ten independent curved valleys, polynomial so that every element
-    rounds the same in any batch: (..., 10, 2) -> (..., 10)."""
-    c = torch.linspace(0.5, 1.5, 10, dtype=z.dtype)
-    a, b = z[..., 0], z[..., 1]
-    return (c - a) ** 2 + 5.0 * (b - a * a) ** 2 + 0.1 * c * b
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-def test_lbfgs_iterates_do_not_depend_on_trials_per_evaluation(dtype):
-    """The line search takes the first passing step whether its trial steps
-    are evaluated one per call (the CPU default) or together (the card's
-    default): the same iterates, bit for bit, and fewer evaluations."""
-    z0 = torch.as_tensor(np.random.default_rng(2).normal(size=(10, 2)), dtype=dtype)
-    runs = []
-    for trials in (1, 4, PO._STEPS):
-        z = PO.batched_lbfgs(_lanes_fun, z0, 200, 1e-5, trials=trials)
-        runs.append((z, dict(PO.last_stats)))
-    (z1, s1), (z4, s4), (za, sa) = runs
-    assert torch.equal(z1, z4) and torch.equal(z1, za)
-    assert s1["iterations"] == s4["iterations"] == sa["iterations"]
-    assert sa["evaluations"] <= s4["evaluations"] <= s1["evaluations"]
-    assert sa["evaluations"] == sa["iterations"] + 1
-    assert s1["at_gtol"] + s1["stuck"] + s1["at_maxiter"] == 10
-    # every lane ends in its valley's one minimum, a = c / (1 + 0.1 c), b = a^2 - 0.01 c
-    c = torch.linspace(0.5, 1.5, 10, dtype=torch.float64)
-    a = c / (1.0 + 0.1 * c)
-    want = torch.stack([a, a * a - 0.01 * c], dim=-1)
-    assert (z1.double() - want).abs().max().item() < 1e-4
-
-
-def test_multi_surface_search_with_every_trial_in_one_evaluation(monkeypatch):
-    """The card's default, every trial step of a line search scored in one
-    evaluation of all lanes, gives the CPU default's candidates."""
-    centers = torch.tensor([[0.3, 0.7], [0.6, 0.2]], dtype=F64)
-
-    def acq_all(x):  # (N, 2) -> (2, N)
-        return (0.05 * torch.cos(9.0 * x[None, :, 0])
-                - torch.sum((x[None] - centers[:, None]) ** 2, dim=-1))
-
-    raw = torch.rand((30, 2), generator=torch.Generator().manual_seed(0), dtype=F64)
-    xs_1, vals_1 = PO.optimize_acqf_box_multi(acq_all, 2, 2, None, raw=raw)
-    evals_1 = PO.last_stats["evaluations"]
-    inner = PO.batched_lbfgs
-    monkeypatch.setattr(PO, "batched_lbfgs",
-                        lambda *a, **k: inner(*a, **{**k, "trials": PO._STEPS}))
-    xs_all, vals_all = PO.optimize_acqf_box_multi(acq_all, 2, 2, None, raw=raw)
-    np.testing.assert_allclose(xs_all.numpy(), xs_1.numpy(), rtol=0, atol=1e-10)
-    np.testing.assert_allclose(vals_all.numpy(), vals_1.numpy(), rtol=0, atol=1e-12)
-    assert PO.last_stats["evaluations"] == PO.last_stats["iterations"] + 1 <= evals_1
 
 
 def test_optimize_acqf_box_on_a_quadratic():
@@ -397,3 +349,53 @@ def test_jesmoc_runs_pareto_and_conditioning_itself(highest):
     assert x_next.shape == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all())
     assert fidelity == 1 if highest else fidelity in (0, 1)
     assert bool(torch.isfinite(jes.last_values).all()) and bool((jes.last_values >= 0).all())
+
+
+
+# (k, fidelity) -> the lane (5 x fidelity + start) of the search whose
+# candidate leaves the JAX package's: the
+# two packages' acquisition differs by some 5e-11 of its value (their
+# factorizations round differently; the gains above agree to 1e-9), and
+# the lane that ends on fidelity 1's candidate (start 4) grows that
+# difference about tenfold an iteration from its 4th iteration: 1.9e-11,
+# 8.1e-10, 1.0e-8, 2.5e-7 in z, ending 2.1e-6 from the JAX package's point
+# and 4.2e-8 from its value. The JAX package's own candidate there moves
+# 2.2e-7 in x and 6.9e-10 in value when that lane's start moves by 1e-13 of
+# itself. This lane is held to the JAX package's iterates over its first 3
+# iterations, and its candidate by value.
+DIVERGES = {(11, 1): 9}
+
+
+@pytest.mark.parametrize("k", range(12))
+def test_optimize_all_fidelities_matches_jax(fitters, k, monkeypatch):
+    """Both packages run optax's L-BFGS from jax.random.key(k)'s 40 raw
+    points at maxiter=200, so every candidate is the JAX package's: x to
+    1e-6, values to 1e-9 (but DIVERGES)."""
+    (ju, jp) = _stacks(fitters)
+    key, raw_samples = jax.random.key(k), 40
+    xs_j, vals_j = JJ.optimize_coupled_jes_all_fidelities(*ju, key, 2, raw_samples=raw_samples,
+                                                          maxiter=200)
+    xs_j, vals_j = np.asarray(xs_j), np.asarray(vals_j)
+    raw = torch.as_tensor(np.asarray(jax.random.uniform(key, (raw_samples, 2), dtype=jnp.float64)))
+    seen, inner = [], LB.precondition
+    monkeypatch.setattr(LB, "precondition", lambda g, z, mem: (seen.append(z), inner(g, z, mem))[1])
+    xs_p, vals_p = PJ.optimize_coupled_jes_all_fidelities(*jp, None, 2, raw_samples=raw_samples,
+                                                          maxiter=200, raw=raw)
+    for fidelity in (0, 1):
+        lane = DIVERGES.get((k, fidelity))
+        if lane is None:
+            np.testing.assert_allclose(xs_p[fidelity].numpy(), xs_j[fidelity], rtol=0, atol=1e-6)
+            np.testing.assert_allclose(vals_p[fidelity].item(), vals_j[fidelity], rtol=1e-9)
+            continue
+        assert vals_p[fidelity].item() >= vals_j[fidelity] - 1e-6
+        states = [jtrainer.states_stacked(p, c, ju[4], with_inv=True)
+                  for p, c in ((ju[0], ju[1]), (ju[2], ju[3]))]
+
+        def neg_acq(z):
+            x = jax.nn.sigmoid(z)[None]
+            return -JJ._coupled_gain_all_stacked(*ju[:4], ju[4], x, *states)[fidelity, 0]
+
+        z0 = seen[0][lane : lane + 1].numpy()
+        _, _, hist, _, _ = optax_lanes(neg_acq, z0, 200, 1e-5)
+        after = torch.stack([z[lane] for z in seen[1:4]]).numpy()
+        np.testing.assert_allclose(after, hist[0, :3], rtol=0, atol=1e-10 * np.abs(hist).max())

@@ -342,6 +342,45 @@ def test_device_polish_on_card_matches_cpu_f64(cuda_device):
         np.testing.assert_allclose(out[1], out[0], rtol=1e-7, atol=1e-9)
 
 
+def test_f64_search_on_card_matches_cpu(cuda_device):
+    """The all-fidelity search of a small trained and conditioned f64 state
+    from 40 fixed raw points, on the card and on the CPU: both run optax's
+    L-BFGS (acquisition/lbfgs.py), so the points agree to 1e-8 and the
+    values to 1e-10, and every lane takes the same number of iterations."""
+    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs
+    from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
+    from mobocmf_tpu_torch.util.tree import tree_map
+
+    names = [("o1", False), ("o2", False), ("c1", True)]
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(14, 2))
+    fid = np.arange(14) % 2
+    ys = [np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 0],
+          0.3 - np.sum((x - 0.5) ** 2, 1)]
+    f = BlackBoxMFDGPFitter(2, 14, num_epochs_1=5, num_epochs_2=5, opt_grid_size=20,
+                            pareto_set_size=4, seed=1, device="cpu", dtype=torch.float64)
+    for (name, is_con), y in zip(names, ys):
+        f.initialize_mfdgp(x, y, fid, name, is_constraint=is_con)
+    f.train_mfdgps()
+    cond = f.copy_uncond()
+    cond.sample_and_store_pareto_solution()
+    cond.train_conditioned_mfdgps()
+    su = trainer.stack_models([f.get_model(n, c) for n, c in names])
+    sc = trainer.stack_models([cond.get_model(n, c) for n, c in names])
+    raw = torch.rand((40, 2), generator=torch.Generator().manual_seed(11), dtype=torch.float64)
+    out = []
+    for dev in ("cpu", cuda_device):
+        pair = [tree_map(lambda t: t.to(dev), t) for t in (su.params, su.consts, sc.params,
+                                                            sc.consts)]
+        xs, vals = jesmoc.optimize_coupled_jes_all_fidelities(
+            *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
+        out.append((xs.cpu(), vals.cpu(), lbfgs.last_stats["lane_iterations"]))
+    (x_c, v_c, it_c), (x_g, v_g, it_g) = out
+    np.testing.assert_allclose(x_g.numpy(), x_c.numpy(), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(v_g.numpy(), v_c.numpy(), rtol=1e-10)
+    assert it_g == it_c
+
+
 # -- the exact-GP family's path: K1 at n = 32 without the ladder -------------
 
 

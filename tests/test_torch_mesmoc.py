@@ -142,6 +142,26 @@ def test_optimize_coupled_mes_by_value(models, fidelity):
     _assert_by_value(acq, x_j, x_p.numpy())
 
 
+@pytest.mark.parametrize("fidelity", [0, 1])
+@pytest.mark.parametrize("seed", [4, 9])
+def test_optimize_coupled_mes_matches_jax(models, fidelity, seed):
+    """Both packages search by optax's L-BFGS, so from the same raw samples
+    the port's point is the JAX package's (1e-6) and so is its value
+    (1e-9)."""
+    objs = [models[n] for n in ("obj1", "obj2")]
+    cj, cp, _ = models["con1"]
+    key, raw_samples = jax.random.key(seed + fidelity), 40
+    x_j, v_j = JM.optimize_coupled_mes(
+        tuple(m[0] for m in objs), tuple(jnp.asarray(m[2]) for m in objs), (cj,),
+        (jnp.asarray(0.0),), fidelity, 1, key, 2, raw_samples=raw_samples, maxiter=200)
+    raw = torch.as_tensor(np.array(jax.random.uniform(key, (raw_samples, 2), dtype=jnp.float64)))
+    x_p, v_p = PM.optimize_coupled_mes(
+        tuple(m[1] for m in objs), tuple(m[2] for m in objs), (cp,), (0.0,), fidelity, 1, None,
+        2, raw_samples=raw_samples, maxiter=200, raw=raw)
+    np.testing.assert_allclose(x_p.numpy(), np.asarray(x_j), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(v_p), float(v_j), rtol=1e-9)
+
+
 def _inject_raws(monkeypatch, seed, num_fidelities, raw_samples=200):
     """The JAX MESMOC_MFGP(seed=...)'s raw samples, fidelity by fidelity,
     fed to the port's search."""
