@@ -28,11 +28,13 @@
    route of the acquisition predictive against the plain route at f64;
    the f64 all-fidelity search of a small trained state and one f64
    device polish on the card against the CPU's (both optax's L-BFGS,
-   acquisition/lbfgs.py: points 1e-8, values 1e-10); then the phases
-   replayed from CUDA graphs (mobocmf_tpu_torch/fit/graphs.py) against
-   the CPU's eager steps from the same draws at f64: a
-   full-batch, a minibatch and a conditioned phase cut into chunks of 2
-   steps (two chunk boundaries and a remainder) and an exact-GP adam_fit,
+   acquisition/lbfgs.py: points 1e-8, values 1e-10), and each, replayed
+   from CUDA graphs, against the same run with its pieces eager on the
+   card (points 1e-12, equal iterations per lane and evaluations); then
+   the phases replayed from CUDA graphs (mobocmf_tpu_torch/fit/graphs.py)
+   against the CPU's eager steps from the same draws at f64: a full-batch,
+   a minibatch and a conditioned phase cut into chunks of 2 steps (two
+   chunk boundaries and a remainder) and an exact-GP adam_fit,
    with K1's launches equal to one eager step's times the steps;
 5. drives the main path through the entry points a user calls: the
    Branin-Currin-512 configuration (3 blackboxes, 490 points padded to the
@@ -47,7 +49,10 @@
    escalations per K1 launch; it scores the candidates on the f64 copy of
    the models, and holds K2 on the path's own trained states to the plain
    route's accuracy (layer 0 against the f64 answer of the same system,
-   and the recommendation means against the f64 models);
+   and the recommendation means against the f64 models); at b128 the f32
+   search from 200 fixed raw points captured and eager (200 iterations
+   each): values within the f32 surface's error, evaluations per iteration
+   within 2 %, every replay under set_sync_debug_mode("error");
 5b. the JAX package's three switches, each flipped in this
    process and restored (phase_variants): at f64, flat Adam
    (MOBOCMF_FLAT_ADAM=1) against per-leaf Adam and the three-forward
@@ -102,14 +107,19 @@
 11. prints, for every path, its captured phases' steps per second with the
    capture seconds and replays, each phase's seconds, and for every path
    that searches or polishes its L-BFGS runs (`[search]` lines: seconds,
-   iterations, evaluations per iteration, line-search steps per lane and
-   iteration, lanes ended at gtol or at maxiter, with a failed line
-   search or on a non-finite point; each mesh rank's), the kernel line
-   and, last, {"ok": true, "device": {...}}.
+   ms per evaluation, how many runs were replayed from CUDA graphs with
+   the capture seconds and replays, iterations, evaluations per iteration,
+   line-search steps per lane and iteration, lanes ended at gtol or at
+   maxiter, with a failed line search or on a non-finite point; each mesh
+   rank's), the kernel line, the script's total seconds and, last,
+   {"ok": true, "device": {...}}.
 
-Every float32 L-BFGS run (the searches of every path, the device polish)
-is cut to SEARCH_ITERS iterations: the depth, not the width, of each
-search; `python -m mobocmf_tpu_torch.profile_search` times them whole.
+Every L-BFGS run on the card is replayed from CUDA graphs (fit/graphs.py),
+but for the dry run's search over the gloo mesh, which runs eagerly (the
+reason is printed), and the eager arms of the checks; the [search] lines
+fail otherwise. Every search and polish runs at its full depth (200 and
+100 iterations at f32, as in a BO iteration). `python -m
+mobocmf_tpu_torch.profile_search` times the searches eager and captured.
 
 Exits non-zero, with no result line, without a CUDA device, outside a
 checkout of the repo, or when any check fails.
@@ -139,11 +149,6 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
 COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
-# every float32 L-BFGS run (search or polish) is cut to this depth (200 and
-# 100 iterations in a BO iteration): at f32 nearly every zoom line search
-# runs its 20 steps, about 20 evaluations an iteration (PERF.md), so full
-# depth would take the script past its time limit
-SEARCH_ITERS = 20
 # chunk size of the captured reference phases (5 steps: 2 + 2 + 1)
 REFERENCE_CHUNK = 2
 # K2 on the main path's f32 states against the plain route, from the H100
@@ -457,7 +462,9 @@ def search_reference(P) -> None:
     CPU port (which the CPU tests hold to the JAX package's optax L-BFGS):
     the all-fidelity search of a small trained and conditioned state (14
     points, 3 blackboxes, 5 + 5 epochs) from 40 fixed raw points, and one
-    polish of RFF prior samples; points within 1e-8, values 1e-10."""
+    polish of RFF prior samples; points within 1e-8, values 1e-10. Each
+    captured run on the card is also held to the same run with its pieces
+    eager on the card (captured_vs_eager)."""
     tree_map = P.tree_map
     rng = np.random.default_rng(0)
     x = rng.uniform(size=(14, 2))
@@ -475,14 +482,15 @@ def search_reference(P) -> None:
     su = P.trainer.stack_models([f.get_model(n, c) for n, c in SEARCH_NAMES])
     sc = P.trainer.stack_models([cond.get_model(n, c) for n, c in SEARCH_NAMES])
     raw = torch.rand((40, 2), generator=torch.Generator().manual_seed(11), dtype=torch.float64)
-    out = []
-    for dev in ("cpu", "cuda"):
+    out = {}
+    for arm, dev in (("cpu", "cpu"), ("card", "cuda"), ("eager", "cuda")):
         pair = [tree_map(lambda t: t.to(dev), t) for t in (su.params, su.consts, sc.params,
                                                             sc.consts)]
-        xs, vals = P.jesmoc.optimize_coupled_jes_all_fidelities(
-            *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
-        out.append((xs.cpu(), vals.cpu(), dict(P.lbfgs.last_stats)))
-    (x_c, v_c, st_c), (x_g, v_g, st_g) = out
+        with eager_arm(P) if arm == "eager" else contextlib.nullcontext():
+            xs, vals = P.jesmoc.optimize_coupled_jes_all_fidelities(
+                *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
+        out[arm] = (xs.cpu(), vals.cpu(), dict(P.lbfgs.last_stats))
+    (x_c, v_c, st_c), (x_g, v_g, st_g), (x_e, v_e, st_e) = out["cpu"], out["card"], out["eager"]
     dx = (x_g - x_c).abs().max().item()
     dv = ((v_g - v_c).abs() / v_c.abs().clamp_min(1e-300)).max().item()
     print(f"[reference] f64 search card vs CPU: points {x_g.tolist()}, max |dx| {dx:.3e}, "
@@ -491,12 +499,13 @@ def search_reference(P) -> None:
           f"{st_c['evaluations']}", flush=True)
     check(dx <= 1e-8 and dv <= 1e-10,
           f"the f64 search on the card is off the CPU's: |dx| {dx:.3e}, values {dv:.3e}")
+    captured_vs_eager("f64 search", (x_g, st_g), (x_e, st_e))
 
     samples = [P.rff.sample_prior(torch.Generator().manual_seed(i), 2, 2, n_features=50,
                                   device="cpu") for i in range(3)]
     grid = np.random.default_rng(5).uniform(size=(80, 2))
-    ends = []
-    for dev in ("cpu", "cuda"):
+    ends = {}
+    for arm, dev in (("cpu", "cpu"), ("card", "cuda"), ("eager", "cuda")):
         fns = [P.SampledFunction(P.rff.eval_sample_fn, tree_map(lambda t: t.to(dev), smp))
                for smp in samples]
         m = P.MOOP(fns[:2], fns[2:], input_dim=2, feasible_values=np.array([-0.5]),
@@ -505,13 +514,14 @@ def search_reference(P) -> None:
             cons = torch.stack([fn(torch.as_tensor(grid, device=dev)) for fn in fns[2:]])
             evals = fns[0](torch.as_tensor(grid, device=dev)).cpu().numpy()
         feas = m._feasible_mask(cons.cpu().numpy(), True)
-        got = m.optimize_obj_globally_device(
-            0, evals, feas, grid, torch.zeros((), dtype=torch.float64, device=dev))
+        with eager_arm(P) if arm == "eager" else contextlib.nullcontext():
+            got = m.optimize_obj_globally_device(
+                0, evals, feas, grid, torch.zeros((), dtype=torch.float64, device=dev))
         value = None if got is None else fns[0](torch.as_tensor(got, device=dev)).item()
-        ends.append((got, value, dict(P.lbfgs.last_stats)))
-    (p_c, f_c, st_c), (p_g, f_g, st_g) = ends
-    check(p_c is not None and p_g is not None,
-          f"the f64 device polish accepted no point (CPU {p_c}, card {p_g})")
+        ends[arm] = (got, value, dict(P.lbfgs.last_stats))
+    (p_c, f_c, st_c), (p_g, f_g, st_g), (p_e, _, st_e) = ends["cpu"], ends["card"], ends["eager"]
+    check(p_c is not None and p_g is not None and p_e is not None,
+          f"the f64 device polish accepted no point (CPU {p_c}, card {p_g}, eager {p_e})")
     dx, dv = float(np.abs(p_g - p_c).max()), abs(f_g - f_c) / max(abs(f_c), 1e-300)
     print(f"[reference] f64 device polish card vs CPU: point {p_g.tolist()}, max |dx| {dx:.3e}, "
           f"value rel diff {dv:.3e}; evaluations {st_g['evaluations']} / {st_c['evaluations']}, "
@@ -519,6 +529,28 @@ def search_reference(P) -> None:
           flush=True)
     check(dx <= 1e-8 and dv <= 1e-10,
           f"the f64 device polish on the card is off the CPU's: |dx| {dx:.3e}, value {dv:.3e}")
+    captured_vs_eager("f64 device polish", (torch.as_tensor(p_g), st_g),
+                      (torch.as_tensor(p_e), st_e))
+
+
+def captured_vs_eager(label, captured, eager) -> None:
+    """An f64 L-BFGS run on the card replayed from CUDA graphs against the
+    same run with its pieces eager: points within 1e-12, the same
+    iterations per lane and evaluations, and the captured run replayed."""
+    (x_g, st_g), (x_e, st_e) = captured, eager
+    dx = (x_g - x_e).abs().max().item()
+    print(f"[reference] {label} on the card, captured vs eager: max |dx| {dx:.3e} (bitwise "
+          f"equal: {torch.equal(x_g, x_e)}); iterations per lane {st_g['lane_iterations']} / "
+          f"{st_e['lane_iterations']}; evaluations {st_g['evaluations']} / {st_e['evaluations']}; "
+          f"captured {st_g['captured']}: capture {st_g['capture_seconds']:.3f} s, "
+          f"{st_g['replays']} replays", flush=True)
+    check(st_g["captured"] and st_g["replays"] > 0 and not st_e["captured"],
+          f"{label}: captured {st_g['captured']} with {st_g['replays']} replays, eager arm "
+          f"captured {st_e['captured']}")
+    check(dx <= 1e-12, f"{label}: the captured run is {dx:.3e} off the eager one")
+    check(st_g["lane_iterations"] == st_e["lane_iterations"]
+          and st_g["evaluations"] == st_e["evaluations"],
+          f"{label}: captured and eager runs took other steps ({st_g}, {st_e})")
 
 
 def rel_diff(got, want) -> float:
@@ -645,9 +677,11 @@ def captured_reference(P) -> None:
 
 
 class StepsLog:
-    """Every graphs.Steps runner on the card closed inside the block: its
-    steps, graph replays, capture seconds, and the seconds its run() calls
-    took (each call synchronized on both ends)."""
+    """Every graphs.Steps runner of a phase on the card closed inside the
+    block: its steps, graph replays, capture seconds, and the seconds its
+    run() calls took (each call synchronized on both ends). The L-BFGS
+    pieces (acquisition/lbfgs.py, also Steps runners) are left to
+    SearchLog, untimed here."""
 
     def __init__(self, P):
         self.P, self.records, self.saved = P, [], []
@@ -656,7 +690,12 @@ class StepsLog:
         steps_cls = self.P.graphs.Steps
         run, close, records = steps_cls.run, steps_cls.close, self.records
 
+        def piece(steps) -> bool:
+            return isinstance(getattr(steps.step, "__self__", None), self.P.lbfgs._Lanes)
+
         def timed_run(steps, n):
+            if piece(steps):
+                return run(steps, n)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(steps, n)
@@ -664,7 +703,7 @@ class StepsLog:
             steps.run_seconds = getattr(steps, "run_seconds", 0.0) + time.perf_counter() - t0
 
         def recorded_close(steps):
-            if steps.device.type == "cuda":
+            if steps.device.type == "cuda" and not piece(steps):
                 records.append(dict(steps=steps.steps, replays=steps.replays,
                                     capture_seconds=steps.capture_seconds,
                                     seconds=getattr(steps, "run_seconds", 0.0)))
@@ -684,9 +723,8 @@ class SearchLog:
     """Every L-BFGS run inside the block (acquisition/lbfgs.py::lbfgs_lanes,
     called by the candidate searches of acquisition/optimize.py and by the
     MOOP's device polish): its kind, seconds (synchronized on both ends)
-    and lbfgs.last_stats. Every float32 run is cut to SEARCH_ITERS
-    iterations (float64 runs keep theirs). Imports the port itself, so
-    that a rank process of the mesh phase can keep one too."""
+    and lbfgs.last_stats. Imports the port itself, so that a rank process
+    of the mesh phase can keep one too."""
 
     def __enter__(self):
         from mobocmf_tpu_torch.acquisition import lbfgs, optimize
@@ -697,8 +735,6 @@ class SearchLog:
 
         def recorded(kind):
             def run(fun, z0, maxiter, *args, **kwargs):
-                if z0.dtype == torch.float32:
-                    maxiter = min(maxiter, SEARCH_ITERS)
                 sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
                 sync()
                 t0 = time.perf_counter()
@@ -718,11 +754,31 @@ class SearchLog:
         return False
 
 
+# the capture reason of the eager arm of a captured-against-eager check
+EAGER_ARM = "the eager arm of a captured-against-eager check"
+
+
+def uncaptured_by_rule(st) -> bool:
+    """An L-BFGS run that ran eagerly by rule: over gloo's collectives, on
+    the CPU, or as the eager arm of a check."""
+    reason = st["capture_reason"]
+    return "gloo" in reason or "CPU" in reason or reason == EAGER_ARM
+
+
+def eager_arm(P):
+    """capture_rule answering 'eager' inside the block (the L-BFGS pieces
+    run eagerly on the card)."""
+    return P.patched(P.sharding, "capture_rule", lambda collectives: (False, EAGER_ARM))
+
+
 def search_summary(label, runs) -> dict:
     """One `[search]` line per kind of L-BFGS run of a path (SearchLog):
-    runs, seconds, iterations, evaluations per iteration, line-search steps
-    per lane and iteration, how the lanes ended. Fails unless every lane
-    ended at gtol or at maxiter."""
+    runs, seconds, ms per evaluation, iterations, evaluations per
+    iteration, line-search steps per lane and iteration, how the lanes
+    ended, and how many runs were replayed from CUDA graphs (capture
+    seconds, replays). Fails unless every lane ended at gtol or at maxiter,
+    and unless every run was captured with replays or ran eagerly by rule
+    (uncaptured_by_rule)."""
     out = {}
     for kind in sorted({k for k, _, _ in runs}):
         rs = [(sec, st) for k, sec, st in runs if k == kind]
@@ -739,9 +795,17 @@ def search_summary(label, runs) -> dict:
                    at_gtol=sum(st["at_gtol"] for _, st in rs),
                    at_maxiter=sum(st["at_maxiter"] for _, st in rs),
                    failed=sum(st["failed_searches"] for _, st in rs),
-                   nonfinite=sum(st["nonfinite"] for _, st in rs))
+                   nonfinite=sum(st["nonfinite"] for _, st in rs),
+                   captured=sum(bool(st["captured"]) for _, st in rs),
+                   capture_seconds=sum(st["capture_seconds"] for _, st in rs),
+                   replays=sum(st["replays"] for _, st in rs),
+                   reasons=sorted({st["capture_reason"] for _, st in rs}))
+        row["ms_per_evaluation"] = 1e3 * row["seconds"] / max(evals, 1)
         print(f"[search] {label} {kind}: {row['runs']} run(s) in {row['seconds']:.3f} s "
-              f"({min(sec for sec, _ in rs):.3f}-{max(sec for sec, _ in rs):.3f} s each); "
+              f"({min(sec for sec, _ in rs):.3f}-{max(sec for sec, _ in rs):.3f} s each), "
+              f"{row['ms_per_evaluation']:.3f} ms per evaluation; captured {row['captured']} of "
+              f"{row['runs']} ({'; '.join(row['reasons'])}), capture {row['capture_seconds']:.3f} "
+              f"s, {row['replays']} replays; "
               f"iterations {min(its)}-{max(its)}; {evals} evaluations, "
               f"{row['evals_per_iteration']:.3f} per iteration; line-search steps per lane and "
               f"iteration max {row['ls_steps_max']}, mean {row['ls_steps_mean']:.3f}; of {lanes} "
@@ -750,6 +814,10 @@ def search_summary(label, runs) -> dict:
               f"non-finite point", flush=True)
         check(all(st["at_gtol"] + st["at_maxiter"] == st["lanes"] for _, st in rs),
               f"{label} {kind}: L-BFGS lanes {[st for _, st in rs]}")
+        check(all(st["replays"] > 0 if st["captured"] else uncaptured_by_rule(st)
+                  for _, st in rs),
+              f"{label} {kind}: a run on the card was not replayed from CUDA graphs: "
+              f"{[(st['captured'], st['replays'], st['capture_reason']) for _, st in rs]}")
         out[kind] = row
     return out
 
@@ -877,10 +945,12 @@ def slice_fitter(P, blackboxes, problem, epochs):
     return fitter
 
 
-def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
+def run_slice(P, label, blackboxes, n_init, epochs, cond_iters, eager_check=False) -> dict:
     """One BO iteration's model side at full width: training, then JESMOC
     (Pareto sampling + conditioned training), the all-fidelity candidate
-    search and the recommendation pass, each stage counted on its own."""
+    search and the recommendation pass, each stage counted on its own;
+    with eager_check, the search captured against eager on the path's
+    state (search_f32_captured_vs_eager)."""
     trainer, M = P.trainer, P.M
     problem = slice_problem(blackboxes, n_init)
     _, _, _, stats, thresholds = problem
@@ -944,7 +1014,8 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
           f"steps per lane and iteration max {lb['ls_steps_max']}, mean "
           f"{lb['ls_steps_mean']:.3f}; of {lb['lanes']} lanes {lb['at_gtol']} ended at gtol, "
           f"{lb['at_maxiter']} at maxiter, {lb['failed_searches']} had a failed line search, "
-          f"{lb['nonfinite']} ended on a non-finite point", flush=True)
+          f"{lb['nonfinite']} ended on a non-finite point; captured {lb['captured']}, capture "
+          f"{lb['capture_seconds']:.3f} s, {lb['replays']} replays", flush=True)
     check(tuple(x_next.shape) == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all()),
           f"{label}: candidate {x_next.tolist()} outside [0, 1]^2")
     check(fid_next in (0, 1), f"{label}: fidelity {fid_next}")
@@ -953,6 +1024,9 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     check(k2_acq >= 1, f"{label}: the screening did not launch K2")
     check(lb["at_gtol"] + lb["at_maxiter"] == lb["lanes"] == 10,
           f"{label}: L-BFGS lanes {lb}")
+    check(lb["captured"] and lb["replays"] > 0, f"{label}: the search was not captured: {lb}")
+    check(lb["iterations"] == 200 or lb["at_gtol"] == lb["lanes"],
+          f"{label}: the search ran {lb['iterations']} iterations, not its 200")
 
     # the f32 surface is not the model's: score each fidelity's candidate on
     # the f64 copy of the uncond and cond models (plain route)
@@ -967,6 +1041,7 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
           f"{vals.tolist()})", flush=True)
     check(bool(torch.isfinite(at64).all()) and bool((at64 >= 0).all()),
           f"{label}: f64 acquisition at the candidates {at64.tolist()}")
+    arms = search_f32_captured_vs_eager(P, label, su, sc, pair64) if eager_check else None
 
     objs = [n for n, _, c in blackboxes if not c]
     cons = [n for n, _, c in blackboxes if c]
@@ -1017,9 +1092,78 @@ def run_slice(P, label, blackboxes, n_init, epochs, cond_iters) -> dict:
     return dict(
         m=m, steps=steps, k1_train=k1_train, k1_slice=k1_jes + k1_acq, k2_acq=k2_acq,
         k2_rec=k2_rec, t_pareto=t_pareto, t_cond=cond["seconds"], cond_iters=cond_iters,
-        t_acq=t_acq, t_rec=t_rec,
+        t_acq=t_acq, t_rec=t_rec, arms=arms,
         steps_per_s=[st["epochs"] / st["seconds"] for st in fitter.phase_stats],
     )
+
+
+@contextlib.contextmanager
+def replays_without_sync(P, count: list):
+    """Every CUDA graph replay inside the block runs under
+    torch.cuda.set_sync_debug_mode("error"), so that a synchronizing call
+    in it raises; `count` gets one entry per replay."""
+    inner = torch.cuda.CUDAGraph.replay
+
+    def replay(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        count.append(1)
+
+    with P.patched(torch.cuda.CUDAGraph, "replay", replay):
+        yield
+
+
+def search_f32_captured_vs_eager(P, label, su, sc, pair64) -> dict:
+    """The all-fidelity search (200 iterations) of the path's f32 state from
+    200 raw points fixed by a seed, eager and captured on the card, every
+    replay of the captured arm under set_sync_debug_mode("error")
+    (replays_without_sync). Each arm's candidates are scored on the f64
+    models: the arms' values must agree within the f32 surface's error
+    there (the larger |f32 value - f64 value| of the two arms), and their
+    evaluations per iteration within 2 %. Prints whether the iterates are
+    bitwise equal."""
+    raw = torch.rand((200, 2), generator=torch.Generator().manual_seed(SEED + 1)).to("cuda")
+    arms, replays = {}, []
+    for arm in ("eager", "captured"):
+        ctx = eager_arm(P) if arm == "eager" else replays_without_sync(P, replays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            xs, vals = P.jesmoc.optimize_coupled_jes_all_fidelities(
+                su.params, su.consts, sc.params, sc.consts, su.config, None, 2, raw_samples=200,
+                maxiter=200, raw=raw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        st = dict(P.lbfgs.last_stats)
+        at64 = torch.stack([P.coupled_acq_stacked(*pair64, f, xs[f:f + 1].double())[0]
+                            for f in range(2)]).detach()
+        arms[arm] = dict(xs=xs.cpu(), vals=vals.double().cpu(), seconds=seconds, stats=st,
+                         surface_err=(vals.double() - at64).abs().max().item(),
+                         evals_per_iteration=st["evaluations"] / max(st["iterations"], 1))
+    e, c = arms["eager"], arms["captured"]
+    tol = max(e["surface_err"], c["surface_err"])
+    dv = (c["vals"] - e["vals"]).abs().max().item()
+    ratio = c["evals_per_iteration"] / e["evals_per_iteration"]
+    print(f"[{label}] f32 search captured vs eager (200 raw points, 200 iterations): seconds "
+          f"{c['seconds']:.3f} / {e['seconds']:.3f}, ms per evaluation "
+          f"{1e3 * c['seconds'] / c['stats']['evaluations']:.3f} / "
+          f"{1e3 * e['seconds'] / e['stats']['evaluations']:.3f}; evaluations per iteration "
+          f"{c['evals_per_iteration']:.3f} / {e['evals_per_iteration']:.3f}; values "
+          f"{c['vals'].tolist()} / {e['vals'].tolist()}, max |diff| {dv:.3e} against the f32 "
+          f"surface's error {tol:.3e}; iterates bitwise equal: {torch.equal(c['xs'], e['xs'])}; "
+          f"capture {c['stats']['capture_seconds']:.3f} s, {c['stats']['replays']} replays, "
+          f"{len(replays)} of them under set_sync_debug_mode('error')", flush=True)
+    check(c["stats"]["captured"] and len(replays) == c["stats"]["replays"] > 0,
+          f"{label}: the captured arm replayed {c['stats']['replays']} graphs, "
+          f"{len(replays)} under the sync check")
+    check(dv <= tol, f"{label}: captured and eager values differ by {dv:.3e} (surface {tol:.3e})")
+    check(abs(ratio - 1.0) <= 0.02,
+          f"{label}: evaluations per iteration captured / eager = {ratio:.4f}")
+    return dict(captured_seconds=c["seconds"], eager_seconds=e["seconds"],
+                captured_evals=c["stats"]["evaluations"], eager_evals=e["stats"]["evaluations"])
 
 
 # the variants phase at the b128 width: 200 + 200 training epochs and 200
@@ -1158,7 +1302,7 @@ def phase_variants(P, blackboxes) -> dict:
     (VARIANT_STEPS + VARIANT_STEPS epochs), one Pareto sample, then
     train_conditioned_mfdgps (VARIANT_STEPS steps) fused, three-forward and
     flat from the same trained models and Pareto solution, and the
-    all-fidelity search (200 raw samples, SEARCH_ITERS L-BFGS iterations) with
+    all-fidelity search (200 raw samples, 200 L-BFGS iterations) with
     ACQ_INV_SOLVES on and off from the same raw samples. Prints steps/s
     without the capture, capture seconds and K1 / K2 launches per setting
     and fails unless K1's launches per step are equal under every setting.
@@ -1570,7 +1714,9 @@ def print_dryrun(label: str, summary: dict, seconds: float) -> dict:
           f"{st['evaluations']} evaluations, line-search steps per lane and iteration max "
           f"{st['ls_steps_max']}, mean {st['ls_steps_mean']:.3f}; of {st['lanes']} lanes "
           f"{st['at_gtol']} ended at gtol, {st['at_maxiter']} at maxiter, "
-          f"{st['failed_searches']} had a failed line search", flush=True)
+          f"{st['failed_searches']} had a failed line search; captured {st['captured']} "
+          f"({st['capture_reason']}), capture {st['capture_seconds']:.3f} s, "
+          f"{st['replays']} replays", flush=True)
     k1 = [sum(r[k]["k1"] for k in stages) for r in ranks]
     k2 = [sum(r[k]["k2"] for k in stages) for r in ranks]
     check(all(a > 0 for a in k1) and all(b > 0 for b in k2),
@@ -1596,6 +1742,10 @@ def phase_mesh(P, root) -> dict:
         want = backend == "nccl"
         check(all(ph["captured"] == want for ph in summary["phases"]),
               f"mesh {label}: phases captured {[ph['captured'] for ph in summary['phases']]}")
+        searched = [r["search_stats"] for r in summary["ranks"]]
+        check(all(st["captured"] == want and (st["replays"] > 0) == want for st in searched),
+              f"mesh {label}: searches captured {[st['captured'] for st in searched]}, replays "
+              f"{[st['replays'] for st in searched]}")
         # one gradient all-reduce a training step, replayed ones included
         steps = sum(ph["steps"] for ph in summary["phases"] if ph["label"] != "cond")
         got = [r["uncond"]["collectives"] for r in summary["ranks"]]
@@ -1618,7 +1768,8 @@ def phase_mesh(P, root) -> dict:
         check(got["k1"] > 0 and got["k2"] > 0,
               f"mesh (c): rank {r} launched K1 {got['k1']}, K2 {got['k2']}")
         search_summary(f"mesh (c) rank {r}", got["searches"])
-        check([st for _, _, st in got["searches"]] == [st for _, _, st in res[0]["searches"]],
+        check([dryrun.steps_taken(st) for _, _, st in got["searches"]]
+              == [dryrun.steps_taken(st) for _, _, st in res[0]["searches"]],
               f"mesh (c): rank {r}'s L-BFGS runs took other steps than rank 0's")
     fronts = res[0]["fronts"]
     check((fronts[0] is None) == (fronts[1] is None), f"mesh (c): sharded MOOP {fronts}")
@@ -1979,6 +2130,7 @@ def main() -> int:
         from mobocmf_tpu_torch.fit import conditioned, graphs
         from mobocmf_tpu_torch.acquisition import jesmoc
         from mobocmf_tpu_torch.models import exact_gp
+        from mobocmf_tpu_torch.parallel import sharding
         from mobocmf_tpu_torch.examples.example_synthetic_2D import main as synthetic2d_main
         from mobocmf_tpu_torch.examples.example_acquisition_mfdgp_forrester import (
             main as forrester_main)
@@ -1986,6 +2138,7 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({exc})", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     try:
         card = card_name_and_power_limit()
@@ -2013,7 +2166,7 @@ def main() -> int:
                             mfgp=mfgp, dtlz2_main=dtlz2_main, batch10d_main=batch10d_main,
                             patched=patched, conditioned=conditioned, graphs=graphs,
                             exact_gp=exact_gp, jesmoc=jesmoc, MOOP=MOOP,
-                            SampledFunction=SampledFunction)
+                            SampledFunction=SampledFunction, sharding=sharding)
         phase_seconds, searches = {}, {}
 
         def timed(name, fn, *args):
@@ -2046,7 +2199,7 @@ def main() -> int:
         run_a = stepped("bc512", run_slice, P, "bc512", bc512, 490, 100, COND_ITERS)
         small_disk = functools.partial(S.disk_constraint, radius=0.4)
         bench128 = bc512 + [("disk04", (small_disk, small_disk), True)]
-        run_b = stepped("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS)
+        run_b = stepped("b128", run_slice, P, "b128", bench128, 120, 50, COND_ITERS, True)
         run_var = timed("variants", phase_variants, P, bench128)
         P.loop_blackboxes = bench_blackboxes(torch.device("cuda"))
         with tempfile.TemporaryDirectory() as tmp:
@@ -2083,10 +2236,16 @@ def main() -> int:
     rounded = {k: round(v, 1) for k, v in phase_seconds.items()}
     print(f"[summary] phase seconds {json.dumps(rounded)}", flush=True)
     print("[summary] L-BFGS runs per path (seconds, evaluations per iteration, mean line-search "
-          "steps per lane and iteration): " + "; ".join(
+          "steps per lane and iteration, ms per evaluation, captured runs): " + "; ".join(
               f"{name} {kind} {row['runs']} x ({row['seconds']:.3f} s, "
-              f"{row['evals_per_iteration']:.3f}, {row['ls_steps_mean']:.3f})"
+              f"{row['evals_per_iteration']:.3f}, {row['ls_steps_mean']:.3f}, "
+              f"{row['ms_per_evaluation']:.3f}, {row['captured']})"
               for name, rows in searches.items() for kind, row in rows.items()), flush=True)
+    arms = run_b["arms"]
+    print(f"[summary] b128 f32 search at full depth, captured / eager: "
+          f"{arms['captured_seconds']:.3f} / {arms['eager_seconds']:.3f} s, "
+          f"{arms['captured_evals']} / {arms['eager_evals']} evaluations", flush=True)
+    print(f"[summary] total {time.perf_counter() - t_start:.1f} s", flush=True)
     small = k1[("f32-noladder", 1, 32)]
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from mobocmf_tpu_torch.acquisition.optimize import optimize_acqf_box
+from mobocmf_tpu_torch.fit import graphs
 from mobocmf_tpu_torch.util import heartbeat
 
 # unfilled batch slots live far outside the unit box: their penalty factor
@@ -34,7 +35,7 @@ def penalized_acq(acq_fn: Callable, chosen: torch.Tensor, rho: float) -> Callabl
         base = acq_fn(x)
         d2 = torch.sum((x[:, None, :] - chosen[None, :, :]) ** 2, dim=-1)  # (N, k)
         pen = 1.0 - torch.exp(-d2 / (2.0 * rho**2))
-        return base * torch.prod(pen, dim=1)
+        return base * graphs.prod(pen, dim=1)
 
     return fn
 

@@ -149,7 +149,7 @@ def optimize_coupled_jes_all_fidelities(
         _over_bb(lambda xx: _coupled_gain_all_stacked(pair, xx, states), mesh),
         config.num_fidelities,
         input_dim, generator, num_restarts=num_restarts, raw_samples=raw_samples,
-        maxiter=maxiter, dtype=z.dtype, device=z.device, raw=raw,
+        maxiter=maxiter, dtype=z.dtype, device=z.device, raw=raw, mesh=mesh,
     )
 
 

@@ -13,7 +13,8 @@ options={"maxiter": 200}) of the reference acquisitions
    one backward of their sum give every lane its own value and gradient.
    A lane stops as the JAX package's loop does, once max|g| <= gtol
    (scipy L-BFGS-B's pgtol contract) or after `maxiter` iterations, so the
-   iterates are the JAX package's;
+   iterates are the JAX package's; on the card its pieces are replayed
+   from CUDA graphs, as the JAX package's loop is one jitted program;
 4. return the best point seen per surface, the raw screening values
    included as a floor (a failed line search cannot regress). A lane that
    ends on a non-finite value is never the candidate: at f32 a lane can
@@ -49,13 +50,16 @@ def optimize_acqf_box_multi(
     dtype: torch.dtype = torch.float64,
     device=None,
     raw: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Maximize `n_out` acquisition surfaces sharing one evaluator.
 
     acq_all_fn: (N, d) -> (n_out, N), pointwise in N. The screening is
     shared (one evaluation scores every surface) and all n_out x
     num_restarts lanes run in one batched L-BFGS. raw: the (raw_samples, d)
-    screening points (default: uniform from `generator`). Returns
+    screening points (default: uniform from `generator`). mesh: the mesh
+    whose collectives acq_all_fn runs (None: none), which decides whether
+    the L-BFGS pieces are captured (acquisition/lbfgs.py). Returns
     (xs (n_out, d), values (n_out,))."""
     if raw is None:
         dev = device if device is not None else (generator.device if generator is not None else None)
@@ -71,7 +75,8 @@ def optimize_acqf_box_multi(
     def neg_acq(z):  # (lanes, d) -> (lanes,)
         return -acq_all_fn(torch.sigmoid(z))[lane_out, rows]
 
-    z = lbfgs_lanes(neg_acq, _logit(starts.reshape(lanes, input_dim)), maxiter, gtol)
+    z = lbfgs_lanes(neg_acq, _logit(starts.reshape(lanes, input_dim)), maxiter, gtol,
+                    collectives=mesh)
     xs = torch.sigmoid(z)
     with torch.no_grad():
         vals = acq_all_fn(xs)[lane_out, rows]

@@ -77,16 +77,6 @@ def loss_theta_factors(cs_mean, cs_var, threshold, eps: float, mask) -> torch.Te
     return torch.sum(torch.where(mask, per_point, torch.zeros_like(per_point)), dim=-1)
 
 
-def _prod(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """torch.prod over `dim` as a chain of products: prod's backward counts
-    the zeros on the host, which a step captured into a CUDA graph cannot."""
-    shape = t.shape[:dim] + t.shape[dim + 1:]
-    out = torch.ones(shape, dtype=t.dtype, device=t.device)
-    for part in t.unbind(dim):
-        out = out * part
-    return out
-
-
 def loss_omega_factors(
     fs_mean: torch.Tensor,  # (K, J) objective means at x_tilde
     fs_var: torch.Tensor,
@@ -100,8 +90,8 @@ def loss_omega_factors(
     """Reference :235-243, masked over padded Pareto rows."""
     gamma_c = (cs_mean - thresholds[:, None]) / torch.sqrt(cs_var)  # (C, J)
     gamma_f = (pareto_front[:, :, None] - fs_mean[None]) / torch.sqrt(fs_var[None])  # (P, K, J)
-    prob_feas = _prod(torch.special.ndtr(gamma_c), dim=0)  # (J,)
-    prob_dom = _prod(torch.special.ndtr(gamma_f), dim=1)  # (P, J)
+    prob_feas = graphs.prod(torch.special.ndtr(gamma_c), dim=0)  # (J,)
+    prob_dom = graphs.prod(torch.special.ndtr(gamma_f), dim=1)  # (P, J)
     q = prob_feas[None, :] * prob_dom
     per = math.log(eps) * q + math.log(1.0 - eps) * (1.0 - q)
     return torch.sum(torch.where(front_mask[:, None], per, torch.zeros_like(per)))

@@ -35,6 +35,14 @@ launches of every replay to `launches`, and likewise the collectives of
 every replay (parallel/sharding.py::captured) to `sharding.calls`. (K2
 runs only without gradients, never inside a captured step.) `close()`
 frees the graph and its memory pool at the end of the phase.
+
+The candidate searches and the MOOP's device polish run their L-BFGS
+(acquisition/lbfgs.py) as four pieces, each a `Steps` of its own with
+`run(1)` per piece run: the value recomputed where not finite, an
+iteration's prologue, one line-search step, the epilogue. Their K1
+launches (the layer states) and K2 launches (the raw-sample screening)
+come before the lanes start, outside the graphs: a search still launches
+K1 / K2 2 / 2. `prod` is torch.prod for a captured step.
 """
 
 from __future__ import annotations
@@ -181,6 +189,16 @@ class StepIndex:
 
     def reset(self) -> None:
         self.t.zero_()
+
+
+def prod(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.prod over `dim` as a chain of products: prod's backward counts
+    the zeros on the host, which a step captured into a CUDA graph cannot."""
+    shape = t.shape[:dim] + t.shape[dim + 1:]
+    out = torch.ones(shape, dtype=t.dtype, device=t.device)
+    for part in t.unbind(dim):
+        out = out * part
+    return out
 
 
 class Steps:

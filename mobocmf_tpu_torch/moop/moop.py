@@ -282,7 +282,8 @@ class MOOP:
         c(x), 0)^2) over x = sigmoid(z) by optax's L-BFGS for `iters`
         iterations (acquisition/lbfgs.py; every start a lane of one batched
         search, each running all `iters`, as the JAX package's lax.scan
-        does). The same accept rule as
+        does; on the card its pieces are replayed from CUDA graphs, the
+        loss running no collectives). The same accept rule as
         SLSQP: the best feasible end point is returned only if it improves
         on the best feasible grid value."""
         obj, cons = self._objs[obj_idx], self._cons

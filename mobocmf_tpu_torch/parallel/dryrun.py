@@ -329,6 +329,11 @@ def _rank(size_name: str, bb: int, device: str) -> dict:
     return out
 
 
+def steps_taken(stats: dict) -> dict:
+    """lbfgs.last_stats without its one clock reading (capture_seconds)."""
+    return {k: v for k, v in stats.items() if k != "capture_seconds"}
+
+
 def _close(got, want, rtol, atol) -> bool:
     return bool(np.allclose(got, want, rtol=rtol, atol=atol))
 
@@ -389,7 +394,7 @@ def compare(ranks: list, ref: dict, device) -> list:
         _check(np.array_equal(xs, ranks[0]["search"][0]) and
                np.array_equal(vals, ranks[0]["search"][1]),
                f"rank {r}: the search's result differs from rank 0's")
-        _check(out["search_stats"] == ranks[0]["search_stats"],
+        _check(steps_taken(out["search_stats"]) == steps_taken(ranks[0]["search_stats"]),
                f"rank {r}: the search's L-BFGS took other steps than rank 0's: "
                f"{out['search_stats']} against {ranks[0]['search_stats']}")
         for k, st in out["stages"].items():

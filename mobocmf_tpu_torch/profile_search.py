@@ -1,17 +1,15 @@
-"""The candidate search and the MOOP's device polish on the card: this
-checkout's L-BFGS (optax's, acquisition/lbfgs.py) against the one of
-another checkout's acquisition/optimize.py, on the same states.
+"""The candidate search and the MOOP's device polish on the card, with the
+L-BFGS pieces (acquisition/lbfgs.py) replayed from CUDA graphs and eager.
 
-    python -m mobocmf_tpu_torch.profile_search --tree PATH [--paths bc512,b128,...]
-        [--json PATH]
-    python -m mobocmf_tpu_torch.profile_search --tree PATH --device cpu --small  # rehearsal
+    python -m mobocmf_tpu_torch.profile_search [--paths bc512,b128,...] [--json PATH]
+    python -m mobocmf_tpu_torch.profile_search --device cpu --small  # rehearsal
 
-For each path it trains one state at the path's width (f32 on the card),
-conditions it on a Pareto sample as JESMOC_MFDGP does, and runs the
-all-fidelity search (jesmoc.optimize_coupled_jes_all_fidelities, 5
-restarts per fidelity) from raw points fixed by a seed, once with the
-`optimize_acqf_box_multi` of PATH's acquisition/optimize.py and once with
-this checkout's, in turns (other, this, this, other):
+Each path runs in a process of its own. It trains one state at the path's
+width (f32 on the card), conditions it on a Pareto sample as JESMOC_MFDGP
+does, and runs the all-fidelity search (jesmoc.optimize_coupled_jes_all_
+fidelities, 5 restarts per fidelity) at full depth from raw points fixed by
+a seed, in turns eager, captured, captured, eager ("eager": capture_rule
+patched to answer no, so every piece runs eagerly on the card):
 - bc512: Branin, Currin and a disk constraint at 2 fidelities, 490 points
   padded to m = 512, d = 2, 100 + 100 epochs, 100 conditioned steps, 200
   raw samples, maxiter 200 (chip_smoke.py's bc512);
@@ -24,24 +22,24 @@ this checkout's, in turns (other, this, this, other):
   20 conditioned steps, maxiter 200 (one all-fidelity search; the example
   makes 16 penalized ones);
 - polish: one MOOP device polish (5 starts, 100 iterations) of bc512's
-  first objective's RFF posterior sample under its constraint's, with
-  PATH's `batched_lbfgs` (gtol 0, as its MOOP called it) and this
-  checkout's `lbfgs_lanes`.
-Prints per run the seconds (synchronized on both ends), iterations,
-evaluations and evaluations per iteration, how the lanes ended, and this
-checkout's line-search steps per lane and iteration; then the card's name
-and power limit. With --json, writes the rows to PATH. The other
-checkout's optimize.py must take the arguments this checkout's does and
-import nothing of the package (the backtracking search before optax's did
-so).
+  first objective's RFF posterior sample under its constraint's.
+Then each arm once more, cut to PROFILE_ITERS iterations, under
+torch.profiler: the card's busy time (kernels and copies) per evaluation.
+Prints one JSON row per run: seconds (synchronized on both ends), ms per
+evaluation, iterations, evaluations and evaluations per iteration, how the
+lanes ended, the line-search steps per lane and iteration, the capture
+seconds and replays, and per arm the device ms per evaluation; then the
+card's name and power limit. With --json, writes the rows to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import contextlib
 import json
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,15 +47,8 @@ import numpy as np
 import torch
 
 SEED = 7
-
-
-def _other_optimize(tree: str):
-    """acquisition/optimize.py of the checkout at `tree`, loaded by its path."""
-    path = Path(tree) / "mobocmf_tpu_torch" / "acquisition" / "optimize.py"
-    spec = importlib.util.spec_from_file_location("_other_optimize", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+PATHS = ("bc512", "b128", "dtlz2_2048", "batch10d", "polish")
+PROFILE_ITERS = 10  # iterations of the profiled runs
 
 
 def _paths(small: bool) -> dict:
@@ -118,6 +109,16 @@ def _state(spec, device, dtype):
     return (su.params, su.consts, sc.params, sc.consts, su.config), cond
 
 
+def _arm(arm: str):
+    """The block in which the L-BFGS pieces run as `arm` says."""
+    from mobocmf_tpu_torch.parallel import sharding
+    from mobocmf_tpu_torch.profiling import patched
+
+    if arm == "captured":
+        return contextlib.nullcontext()
+    return patched(sharding, "capture_rule", lambda collectives: (False, "eager arm"))
+
+
 def _timed(fn, device):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
@@ -127,43 +128,73 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def _row(path, which, seconds, stats, values=None) -> dict:
+def _device_ms(fn, device) -> float:
+    """The card's busy time (its kernels and copies) over one call of fn
+    under torch.profiler, in ms; on the CPU fn runs untraced (None)."""
+    if device.type != "cuda":
+        fn()
+        return None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.time_range.elapsed_us() for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _row(path, arm, seconds, stats, values=None, device_ms=None) -> dict:
     its = max(stats["iterations"], 1)
-    row = dict(path=path, optimizer=which, seconds=seconds, iterations=stats["iterations"],
-               evaluations=stats["evaluations"], evals_per_iteration=stats["evaluations"] / its,
-               lanes=stats["lanes"], at_gtol=stats["at_gtol"], at_maxiter=stats["at_maxiter"],
-               ls_steps_mean=stats.get("ls_steps_mean"), ls_steps_max=stats.get("ls_steps_max"),
-               failed_searches=stats.get("failed_searches"), stuck=stats.get("stuck"),
+    evals = max(stats["evaluations"], 1)
+    row = dict(path=path, arm=arm, seconds=seconds,
+               ms_per_evaluation=None if seconds is None else 1e3 * seconds / evals,
+               device_ms_per_evaluation=None if device_ms is None else device_ms / evals,
+               iterations=stats["iterations"], evaluations=stats["evaluations"],
+               evals_per_iteration=stats["evaluations"] / its, lanes=stats["lanes"],
+               at_gtol=stats["at_gtol"], at_maxiter=stats["at_maxiter"],
+               ls_steps_mean=stats["ls_steps_mean"], ls_steps_max=stats["ls_steps_max"],
+               failed_searches=stats["failed_searches"], captured=stats["captured"],
+               capture_seconds=stats["capture_seconds"], replays=stats["replays"],
                values=values)
     print(json.dumps(row), flush=True)
     return row
 
 
-def search_rows(path, spec, other, device, dtype) -> list:
-    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs, optimize
-    from mobocmf_tpu_torch.profiling import patched
+def _runs(path, device, run) -> list:
+    """`run(maxiter)` -> values, in turns eager, captured, captured, eager at
+    full depth, then each arm profiled at PROFILE_ITERS iterations."""
+    from mobocmf_tpu_torch.acquisition import lbfgs
+
+    rows = []
+    for arm in ("eager", "captured", "captured", "eager"):
+        with _arm(arm):
+            values, seconds = _timed(lambda: run(None), device)
+        rows.append(_row(path, arm, seconds, lbfgs.last_stats, values))
+    for arm in ("eager", "captured"):
+        with _arm(arm):
+            ms = _device_ms(lambda: run(PROFILE_ITERS), device)
+        rows.append(_row(path, f"{arm} profiled", None, lbfgs.last_stats, None, ms))
+    return rows
+
+
+def search_rows(path, spec, device, dtype) -> list:
+    from mobocmf_tpu_torch.acquisition import jesmoc
 
     pair, _ = _state(spec, device, dtype)
     d, raw_samples, maxiter = spec[2], spec[5], spec[6]
     raw = torch.rand((raw_samples, d), generator=torch.Generator().manual_seed(SEED + 1),
                      dtype=dtype).to(device)
-    rows = []
-    for which in ("other", "this", "this", "other"):
-        mod = other if which == "other" else optimize
-        with patched(jesmoc, "optimize_acqf_box_multi", mod.optimize_acqf_box_multi):
-            (xs, vals), seconds = _timed(lambda: jesmoc.optimize_coupled_jes_all_fidelities(
-                *pair, None, d, raw_samples=raw_samples, maxiter=maxiter, raw=raw), device)
-        stats = other.last_stats if which == "other" else lbfgs.last_stats
-        rows.append(_row(path, which, seconds, stats, vals.tolist()))
-    return rows
+
+    def run(iters):
+        _, vals = jesmoc.optimize_coupled_jes_all_fidelities(
+            *pair, None, d, raw_samples=raw_samples, maxiter=iters or maxiter, raw=raw)
+        return vals.tolist()
+
+    return _runs(path, device, run)
 
 
-def polish_rows(spec, other, device, dtype) -> list:
+def polish_rows(spec, device, dtype) -> list:
     """One device polish of the bc512 state's first objective (see the
-    module docstring), with each optimizer."""
-    from mobocmf_tpu_torch.acquisition import lbfgs
+    module docstring), 100 iterations."""
     from mobocmf_tpu_torch.moop import moop
-    from mobocmf_tpu_torch.profiling import patched
     from mobocmf_tpu_torch.sampling import rff
 
     _, cond = _state(spec, device, dtype)
@@ -181,23 +212,12 @@ def polish_rows(spec, other, device, dtype) -> list:
     if feas is None:
         feas = np.ones(grid.shape[0], dtype=bool)
 
-    def parent_lanes(fun, z0, iters, gtol=None):
-        # its trial steps come as (k, lanes, d): the loss is pointwise in rows
-        def flat(z):
-            return fun(z.reshape(-1, z.shape[-1])).reshape(z.shape[:-1])
-        return other.batched_lbfgs(flat, z0, iters, gtol=0.0)
-
-    rows = []
-    for which in ("other", "this", "this", "other"):
-        impl = parent_lanes if which == "other" else lbfgs.lbfgs_lanes
-        with patched(moop, "lbfgs_lanes", impl):
-            got, seconds = _timed(
-                lambda: m.optimize_obj_globally_device(0, evals, feas, grid, like), device)
-        stats = other.last_stats if which == "other" else lbfgs.last_stats
-        value = None if got is None else float(m._objs[0](torch.as_tensor(
+    def run(iters):
+        got = m.optimize_obj_globally_device(0, evals, feas, grid, like, iters=iters or 100)
+        return None if got is None else float(m._objs[0](torch.as_tensor(
             got, dtype=dtype, device=device)).item())
-        rows.append(_row("polish", which, seconds, stats, value))
-    return rows
+
+    return _runs("polish", device, run)
 
 
 def card_name_and_power_limit() -> str:
@@ -209,10 +229,17 @@ def card_name_and_power_limit() -> str:
         return "nvidia-smi unavailable"
 
 
+def one_path(path: str, device, small: bool) -> list:
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    specs = _paths(small)
+    if path == "polish":
+        return polish_rows(specs["bc512"], device, dtype)
+    return search_rows(path, specs[path], device, dtype)
+
+
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--tree", required=True, help="the other checkout")
-    parser.add_argument("--paths", default="bc512,b128,dtlz2_2048,batch10d,polish")
+    parser.add_argument("--paths", default=",".join(PATHS))
     parser.add_argument("--device", default=None)
     parser.add_argument("--small", action="store_true", help="cut the points and epochs 8x")
     parser.add_argument("--json", default=None)
@@ -220,15 +247,18 @@ def main(argv=None) -> list:
     from mobocmf_tpu_torch.core.device import resolve_device
 
     device = resolve_device(args.device)
-    dtype = torch.float32 if device.type == "cuda" else torch.float64
-    other = _other_optimize(args.tree)
-    specs = _paths(args.small)
+    paths = args.paths.split(",")
     rows = []
-    for path in args.paths.split(","):
-        if path == "polish":
-            rows += polish_rows(specs["bc512"], other, device, dtype)
-        else:
-            rows += search_rows(path, specs[path], other, device, dtype)
+    if len(paths) == 1:
+        rows = one_path(paths[0], device, args.small)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            for path in paths:  # one process per path
+                out = Path(tmp) / f"{path}.json"
+                cmd = [sys.executable, "-m", "mobocmf_tpu_torch.profile_search", "--paths", path,
+                       "--json", str(out)] + (["--device", args.device] if args.device else [])
+                subprocess.run(cmd + (["--small"] if args.small else []), check=True)
+                rows += json.loads(out.read_text())
     print(card_name_and_power_limit(), flush=True)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

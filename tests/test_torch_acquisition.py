@@ -173,6 +173,54 @@ def test_optimize_all_fidelities_by_value_f32(fitters):
         assert at64[0].item() >= at64[1].item() - surface_err, (fidelity, at64, surface_err)
 
 
+def test_f32_line_searches_take_the_jax_packages_steps(fitters):
+    """At f32 nearly every zoom line search runs to its 20-step cap in both
+    packages: the search's cost per iteration is optax's algorithm on an
+    f32 surface, not the port's. Fidelity 0's 5 lanes from the f32
+    screening of jax.random.key(5)'s 40 raw points, 30 iterations: the
+    port's mean line-search steps per lane and iteration lie within 2 of
+    optax's (vmapped, optax_lanes, run in f32 with x64 off), and both take
+    at least 10."""
+    (ju, _) = _stacks(fitters)
+    p32 = jax.tree.map(
+        lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, ju[:4])
+    config, fidelity, iters = ju[4], 0, 30
+    raw = torch.as_tensor(np.array(jax.random.uniform(jax.random.key(5), (40, 2),
+                                                      dtype=jnp.float32)))
+    pt = [jax.tree.map(np.asarray, t) for t in p32]
+    pu = model_from_numpy(pt[0], pt[1], config._asdict(), "cpu", torch.float32)
+    pc = model_from_numpy(pt[2], pt[3], config._asdict(), "cpu", torch.float32)
+    pair = PJ._pair(pu.params, pu.consts, pc.params, pc.consts, pu.config)
+    states = PJ.pair_states(pair)
+    with torch.no_grad():
+        top = torch.topk(PJ._coupled_gain_all_stacked(pair, raw, states)[fidelity], 5).indices
+    z0 = PO._logit(raw[top])
+
+    def neg_acq(z):  # (5, d) -> (5,)
+        return -PJ._coupled_gain_all_stacked(pair, torch.sigmoid(z), states)[fidelity]
+
+    LB.lbfgs_lanes(neg_acq, z0, iters, 1e-5)
+    port_mean = LB.last_stats["ls_steps_mean"]
+    # with x64 on (this process's setting) parts of the JAX package's f32
+    # surface are computed in f64, and its line searches take 3-12 steps
+    with jax.enable_x64(False):
+        pj = jax.tree.map(jnp.asarray, p32)
+        jstates = [jtrainer.states_stacked(p, c, config, with_inv=True)
+                   for p, c in ((pj[0], pj[1]), (pj[2], pj[3]))]
+
+        def neg_acq_j(z):  # one lane (d,) -> ()
+            return -JJ._coupled_gain_all_stacked(*pj, config, jax.nn.sigmoid(z)[None],
+                                                 *jstates)[fidelity, 0]
+
+        _, its, _, ls, _ = optax_lanes(neg_acq_j, z0.numpy(), iters, 1e-5)
+    jax_mean = float(np.mean(np.concatenate([ls[i, :n] for i, n in enumerate(its)])))
+    print(f"mean line-search steps per lane and iteration: port {port_mean:.3f}, JAX "
+          f"{jax_mean:.3f}; iterations per lane: port {LB.last_stats['lane_iterations']}, JAX "
+          f"{its.tolist()}")
+    assert port_mean >= 10 and jax_mean >= 10, (port_mean, jax_mean)
+    assert abs(port_mean - jax_mean) <= 2, (port_mean, jax_mean)
+
+
 @pytest.mark.parametrize("no_grad", [False, True], ids=["plain-route", "k2-route"])
 def test_gains_without_inverse_match_jax_and_inverse_route(fitters, monkeypatch, no_grad):
     """ACQ_INV_SOLVES off: the states carry no L^{-1}; the all-fidelity and

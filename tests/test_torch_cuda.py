@@ -342,14 +342,10 @@ def test_device_polish_on_card_matches_cpu_f64(cuda_device):
         np.testing.assert_allclose(out[1], out[0], rtol=1e-7, atol=1e-9)
 
 
-def test_f64_search_on_card_matches_cpu(cuda_device):
-    """The all-fidelity search of a small trained and conditioned f64 state
-    from 40 fixed raw points, on the card and on the CPU: both run optax's
-    L-BFGS (acquisition/lbfgs.py), so the points agree to 1e-8 and the
-    values to 1e-10, and every lane takes the same number of iterations."""
-    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs
+def _search_state():
+    """A small trained and conditioned f64 state (14 points, 3 blackboxes,
+    5 + 5 epochs, on the CPU) and 40 fixed raw points."""
     from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
-    from mobocmf_tpu_torch.util.tree import tree_map
 
     names = [("o1", False), ("o2", False), ("c1", True)]
     rng = np.random.default_rng(0)
@@ -368,17 +364,107 @@ def test_f64_search_on_card_matches_cpu(cuda_device):
     su = trainer.stack_models([f.get_model(n, c) for n, c in names])
     sc = trainer.stack_models([cond.get_model(n, c) for n, c in names])
     raw = torch.rand((40, 2), generator=torch.Generator().manual_seed(11), dtype=torch.float64)
-    out = []
-    for dev in ("cpu", cuda_device):
-        pair = [tree_map(lambda t: t.to(dev), t) for t in (su.params, su.consts, sc.params,
-                                                            sc.consts)]
-        xs, vals = jesmoc.optimize_coupled_jes_all_fidelities(
-            *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
-        out.append((xs.cpu(), vals.cpu(), lbfgs.last_stats["lane_iterations"]))
-    (x_c, v_c, it_c), (x_g, v_g, it_g) = out
+    return su, sc, raw
+
+
+def _search_on(dev, su, sc, raw):
+    """The all-fidelity search of `_search_state` on `dev`: (xs, values,
+    lbfgs.last_stats)."""
+    from mobocmf_tpu_torch.acquisition import jesmoc, lbfgs
+    from mobocmf_tpu_torch.util.tree import tree_map
+
+    pair = [tree_map(lambda t: t.to(dev), t) for t in (su.params, su.consts, sc.params,
+                                                        sc.consts)]
+    xs, vals = jesmoc.optimize_coupled_jes_all_fidelities(
+        *pair, su.config, None, 2, raw_samples=40, maxiter=200, raw=raw.to(dev))
+    return xs.cpu(), vals.cpu(), dict(lbfgs.last_stats)
+
+
+def test_f64_search_on_card_matches_cpu(cuda_device):
+    """The all-fidelity search of a small trained and conditioned f64 state
+    from 40 fixed raw points, on the card and on the CPU: both run optax's
+    L-BFGS (acquisition/lbfgs.py), so the points agree to 1e-8 and the
+    values to 1e-10, and every lane takes the same number of iterations."""
+    su, sc, raw = _search_state()
+    out = [_search_on(dev, su, sc, raw) for dev in ("cpu", cuda_device)]
+    (x_c, v_c, st_c), (x_g, v_g, st_g) = out
     np.testing.assert_allclose(x_g.numpy(), x_c.numpy(), rtol=0, atol=1e-8)
     np.testing.assert_allclose(v_g.numpy(), v_c.numpy(), rtol=1e-10)
-    assert it_g == it_c
+    assert st_g["lane_iterations"] == st_c["lane_iterations"]
+
+
+def _eager(monkeypatch):
+    """The L-BFGS pieces run eagerly on the card (capture_rule says so)."""
+    from mobocmf_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(sharding, "capture_rule", lambda collectives: (False, "eager"))
+
+
+def test_captured_search_matches_eager_f64(cuda_device, monkeypatch):
+    """The same search with its L-BFGS pieces replayed from CUDA graphs and
+    with capture off: points within 1e-12, the same iterations per lane and
+    evaluations, the captured run replayed its graphs."""
+    su, sc, raw = _search_state()
+    x_g, v_g, st_g = _search_on(cuda_device, su, sc, raw)
+    _eager(monkeypatch)
+    x_e, v_e, st_e = _search_on(cuda_device, su, sc, raw)
+    assert st_g["captured"] and st_g["replays"] > 0 and not st_e["captured"]
+    np.testing.assert_allclose(x_g.numpy(), x_e.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(v_g.numpy(), v_e.numpy(), rtol=1e-12)
+    assert st_g["lane_iterations"] == st_e["lane_iterations"]
+    assert st_g["evaluations"] == st_e["evaluations"]
+
+
+def test_search_replays_without_a_host_sync(cuda_device, monkeypatch):
+    """Every graph replay of a captured search runs under
+    set_sync_debug_mode("error"): none synchronizes with the host."""
+    su, sc, raw = _search_state()
+    inner, replays = torch.cuda.CUDAGraph.replay, []
+
+    def replay(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays.append(1)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", replay)
+    _, vals, st = _search_on(cuda_device, su, sc, raw)
+    assert st["captured"] and len(replays) == st["replays"] > 0
+    assert bool(torch.isfinite(vals).all())
+
+
+def test_captured_device_polish_matches_eager_f64(cuda_device, monkeypatch):
+    """The MOOP's device polish (optax's L-BFGS, 100 iterations) captured on
+    the card against the same polish with capture off: the same point to
+    1e-12 and the same evaluations."""
+    from mobocmf_tpu_torch.acquisition import lbfgs
+    from mobocmf_tpu_torch.moop.moop import MOOP, SampledFunction
+    from mobocmf_tpu_torch.sampling import rff
+    from mobocmf_tpu_torch.util.tree import tree_map
+
+    samples = [rff.sample_prior(torch.Generator().manual_seed(i), 2, 2, n_features=50,
+                                device="cpu") for i in range(3)]
+    fns = [SampledFunction(rff.eval_sample_fn, tree_map(lambda t: t.to(cuda_device), s))
+           for s in samples]
+    m = MOOP(fns[:2], fns[2:], input_dim=2, feasible_values=np.array([-0.5]), polish="device")
+    grid = np.random.default_rng(5).uniform(size=(80, 2))
+    like = torch.zeros((), dtype=torch.float64, device=cuda_device)
+    with torch.no_grad():
+        g = torch.as_tensor(grid, device=cuda_device)
+        cons = torch.stack([f(g) for f in fns[2:]]).cpu().numpy()
+        evals = fns[0](g).cpu().numpy()
+    feas = m._feasible_mask(cons, True)
+    got = m.optimize_obj_globally_device(0, evals, feas, grid, like)
+    st = dict(lbfgs.last_stats)
+    _eager(monkeypatch)
+    want = m.optimize_obj_globally_device(0, evals, feas, grid, like)
+    assert st["captured"] and st["replays"] > 0 and not lbfgs.last_stats["captured"]
+    assert got is not None and want is not None
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert st["evaluations"] == lbfgs.last_stats["evaluations"]
+    assert st["lane_iterations"] == lbfgs.last_stats["lane_iterations"] == [100] * 5
 
 
 # -- the exact-GP family's path: K1 at n = 32 without the ladder -------------
@@ -735,3 +821,18 @@ def test_capture_mode_chosen_from_backend(cuda_device, world_size):
         # two ranks sum the rows in another order, and Adam divides by the
         # root of second moments near zero: 1.8e-10 seen after 6 steps
         np.testing.assert_allclose(loss, logs0.loss.cpu().numpy(), rtol=1e-8)
+
+
+def test_a_search_that_fails_to_capture_raises(cuda_device):
+    """A step that reads a value on the host cannot be captured: its third
+    run (after the two eager warm-up runs) raises, with no eager fallback."""
+    from mobocmf_tpu_torch.acquisition import lbfgs
+
+    def fun(z):
+        return ((z - float(z.sum().item())) ** 2).sum(-1)
+
+    z0 = torch.zeros((3, 2), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        lbfgs.lbfgs_lanes(fun, z0, 20)
+    torch.cuda.synchronize()
+    assert torch.ones(2, device=cuda_device).sum().item() == 2.0

@@ -210,3 +210,47 @@ def test_precondition_matches_scale_by_lbfgs():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(mem.weights.numpy().T, np.asarray(state.weights_memory), rtol=1e-14)
     assert mem.count == steps
+
+
+@pytest.mark.parametrize("maxiter", [10, 11, 20, 21])
+def test_ring_wraps_at_its_edges(maxiter, monkeypatch):
+    """The ring's position is a device count: runs that end on either side
+    of count % 10 == 0 (one and two wraps) keep optax's iterates, every
+    lane running maxiter iterations."""
+    z0 = 1.5 * np.random.default_rng(8).normal(size=(3, 6))
+    stats, its, _ = _compare(rosenbrock, rosenbrock, z0, maxiter, None, monkeypatch)
+    assert its.tolist() == [maxiter] * 3 and stats["at_maxiter"] == 3
+
+
+def below(z):
+    """A bowl whose disk of radius 0.1 around its minimum is -inf: a line
+    search that lands there is done (-inf passes the decrease test), so the
+    next iteration starts from a value that is not finite and recomputes it
+    (value_and_grad_from_state)."""
+    c = ((z - 0.3) ** 2).sum(-1)
+    if isinstance(z, torch.Tensor):
+        return torch.where(c < 0.01, torch.full_like(c, -float("inf")), c)
+    return jnp.where(c < 0.01, -jnp.inf, c)
+
+
+def test_a_value_turned_non_finite_is_recomputed(monkeypatch):
+    z0 = np.random.default_rng(9).normal(size=(4, 2))
+    stats, its, _ = _compare(below, below, z0, 50, 1e-5, monkeypatch)
+    assert stats["fresh"] >= 2  # iteration 0's, and at least one mid-search
+    assert stats["at_gtol"] == 4 and its.max() < 50
+
+
+def test_line_search_stops_with_its_last_searching_lane(monkeypatch):
+    """Lanes that stop at gtol at different iterations, and lanes whose line
+    searches end at different steps: every line search runs as many
+    evaluations as its slowest active lane's steps (optax's), so the run
+    takes one evaluation for iteration 0's value plus, per iteration, the
+    most steps any active lane took (the history covers every iteration)."""
+    monkeypatch.setitem(globals(), "HISTORY", 40)
+    z0 = 0.25 + 0.5 * np.random.default_rng(10).normal(size=(5, 6))
+    z0[0] = 0.25 + 1e-3  # near the minimum: stops first
+    stats, its, ls = _compare(_quadratic(jnp), _quadratic(torch), z0, 200, 1e-5, monkeypatch)
+    assert its.max() <= HISTORY and len(set(its.tolist())) == 5
+    want = 1 + sum(int(ls[its > j, j].max()) for j in range(its.max()))
+    assert stats["evaluations"] == want and stats["fresh"] == 1
+    assert stats["ls_steps_max"] == ls.max() > 1
