@@ -62,6 +62,7 @@ import torch
 
 from mobocmf_tpu_torch.fit import graphs
 from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util.profiling import span
 
 MEMORY_SIZE = 10
 MAX_LINESEARCH_STEPS = 20
@@ -419,6 +420,11 @@ class _Lanes:
             nonfinite=nonfinite)
 
 
+# each piece's run is a span of this name (util/profiling.py), the host's
+# reads of `flags` and `searching` are `lbfgs.read` spans
+SPANS = {name: f"lbfgs.{name}" for name in _Lanes.PIECES}
+
+
 def lbfgs_lanes(
     fun: Callable[[torch.Tensor], torch.Tensor],
     z0: torch.Tensor,
@@ -437,22 +443,30 @@ def lbfgs_lanes(
     capture, reason = sharding.capture_rule(collectives)
     pieces = {name: graphs.Steps(getattr(run, name), z0.device, capture=capture,
                                  capture_reason=reason) for name in _Lanes.PIECES}
+
+    def piece(name: str) -> None:
+        with span(SPANS[name]):
+            pieces[name].run(1)
+
     evaluations = fresh = 0
     try:
         for _ in range(maxiter):
-            any_active, any_nonfinite = run.flags.tolist()
+            with span("lbfgs.read"):
+                any_active, any_nonfinite = run.flags.tolist()
             if not any_active:
                 break
             if any_nonfinite:
-                pieces["fresh"].run(1)
+                piece("fresh")
                 evaluations, fresh = evaluations + 1, fresh + 1
-            pieces["prologue"].run(1)
+            piece("prologue")
             for _ in range(MAX_LINESEARCH_STEPS):  # every lane is done or failed by the last
-                pieces["step"].run(1)
+                piece("step")
                 evaluations += 1
-                if not bool(run.searching):
+                with span("lbfgs.read"):
+                    searching = bool(run.searching)
+                if not searching:
                     break
-            pieces["epilogue"].run(1)
+            piece("epilogue")
         stats = run.stats()
     finally:
         for p in pieces.values():

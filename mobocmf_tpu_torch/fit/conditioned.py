@@ -58,6 +58,7 @@ from mobocmf_tpu_torch.fit import graphs, trainer
 from mobocmf_tpu_torch.mlls.elbo import _data_term, gaussian_expected_log_prob
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util.profiling import span
 from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
@@ -258,21 +259,23 @@ def draw_chunk(
     """The draws of `steps` steps at once, each field with a leading step
     dim: minibatch rows (steps, b) (the first b of an argsort of f64
     uniforms; None when the batch is the whole data), x_tilde (steps, 10,
-    d), normals (steps, O+C, F-1, b+P+10)."""
+    d), normals (steps, O+C, F-1, b+P+10). A `cond.draw` span."""
     n, d = data.x.shape
     bsz = min(batch_size, n)
     dtype, device = data.x.dtype, data.x.device
-    bidx = None
-    if bsz < n:
-        keys = torch.rand((steps, n), generator=generator, dtype=torch.float64, device=device)
-        bidx = torch.argsort(keys, dim=-1)[:, :bsz]
-    x_tilde = torch.rand((steps, NUM_OMEGA_POINTS, d), generator=generator, dtype=dtype,
-                         device=device)
-    num_models = data.ys_obj.shape[0] + data.ys_con.shape[0]
-    rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
-    eps = torch.randn((steps, num_models, max(config.num_fidelities - 1, 0), rows),
-                      generator=generator, dtype=dtype, device=device)
-    return StepDraws(batch_idx=bidx, x_tilde=x_tilde, eps=eps)
+    with span("cond.draw"):
+        bidx = None
+        if bsz < n:
+            keys = torch.rand((steps, n), generator=generator, dtype=torch.float64,
+                              device=device)
+            bidx = torch.argsort(keys, dim=-1)[:, :bsz]
+        x_tilde = torch.rand((steps, NUM_OMEGA_POINTS, d), generator=generator, dtype=dtype,
+                             device=device)
+        num_models = data.ys_obj.shape[0] + data.ys_con.shape[0]
+        rows = bsz + data.pareto_set.shape[0] + NUM_OMEGA_POINTS
+        eps = torch.randn((steps, num_models, max(config.num_fidelities - 1, 0), rows),
+                          generator=generator, dtype=dtype, device=device)
+        return StepDraws(batch_idx=bidx, x_tilde=x_tilde, eps=eps)
 
 
 def _stack_draws(draws: Sequence[StepDraws]) -> StepDraws:
@@ -366,17 +369,21 @@ class ConditionedPhase:
         ix.advance()
 
     def run_chunk(self, draws: StepDraws) -> torch.Tensor:
+        """Spans `cond.stage` (the draws into the buffers), `graphs.run`,
+        `cond.log`."""
         steps = draws.x_tilde.shape[0]
-        if self.bidx_buf is not None:
-            self.bidx_buf[:steps].copy_(draws.batch_idx)
-        self.xt_buf[:steps].copy_(draws.x_tilde)
-        eps = draws.eps
-        if self.shard is not None:
-            eps = eps[:, self.models][..., self.eps_cols]
-        self.eps_buf[:steps].copy_(eps)
-        self.index.reset()
+        with span("cond.stage"):
+            if self.bidx_buf is not None:
+                self.bidx_buf[:steps].copy_(draws.batch_idx)
+            self.xt_buf[:steps].copy_(draws.x_tilde)
+            eps = draws.eps
+            if self.shard is not None:
+                eps = eps[:, self.models][..., self.eps_cols]
+            self.eps_buf[:steps].copy_(eps)
+            self.index.reset()
         self.steps.run(steps)
-        return self.loss_buf[:steps].clone()
+        with span("cond.log"):
+            return self.loss_buf[:steps].clone()
 
     def result(self) -> Tuple[M.MFDGPParams, M.MFDGPParams]:
         """The whole objective and constraint stacks (gathered over 'bb')."""
@@ -480,8 +487,9 @@ def train_conditioned_chunked(
     count) with the Adam state carried across them and heartbeat
     `cond:chunk{ci}` after each. Each chunk's draws are made before it runs
     (or taken from `draws`, one StepDraws per step of the phase). `stats`,
-    when given, receives the chunks, capture seconds, replays, steps and
-    whether the phase was captured (and why). mesh: over ('bb', 'dp'). The
+    when given, receives the chunks and trainer.steps_stats (warm-up and
+    capture seconds, the graph pool's bytes, replays, steps, whether the
+    phase was captured and why). mesh: over ('bb', 'dp'). The
     loss's form is the module's FUSED_COND_DEFAULT as it stands at the call,
     as in the JAX package."""
     _check_shared_inducing(obj_consts, con_consts)

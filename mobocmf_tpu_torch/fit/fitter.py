@@ -99,7 +99,9 @@ class BlackBoxMFDGPFitter:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._x_np: Optional[np.ndarray] = None
         # one entry per trained phase: epochs, seconds, first/last summed
-        # loss, K1 launches and ladder escalations during the phase
+        # loss, K1 launches and ladder escalations during the phase, and its
+        # capture record (trainer.steps_stats: warm-up and capture seconds,
+        # the graph pool's bytes, replays, captured and why)
         self.phase_stats: List[dict] = []
         # seconds of initialize_mfdgp's warm-start fetch, host math and ship
         # to the device, summed over blackboxes (models/mfdgp.py::init_mfdgp)
@@ -191,7 +193,8 @@ class BlackBoxMFDGPFitter:
             first=float(losses[0]), last=float(losses[-1]),
             chol_launches=chol.launches - launches0,
             escalations=chol.escalations() - esc0,
-            capture_seconds=stats["capture_seconds"], replays=stats["replays"],
+            warmup_seconds=stats["warmup_seconds"], capture_seconds=stats["capture_seconds"],
+            pool_bytes=stats["pool_bytes"], replays=stats["replays"],
             captured=stats["captured"], capture_reason=stats["capture_reason"],
         )
 

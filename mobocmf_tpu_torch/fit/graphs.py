@@ -56,11 +56,17 @@ import torch
 
 from mobocmf_tpu_torch.linalg import chol
 from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util.profiling import span
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
 # eager steps before the capture: the first builds and loads K1, allocates
 # the Adam state and the cuBLAS workspace; the second runs on warm caches
 WARMUP = 2
+
+# seconds of every Steps' warm-up and capture in this process, the module
+# counter beside linalg/chol.py::launches: a reader that holds no Steps
+# (the benchmark's capture_s.* over a cell's one phase) reads it here
+setup_seconds = 0.0
 
 
 def adam(leaves: Iterable[torch.Tensor], lr: float,
@@ -204,9 +210,12 @@ def prod(t: torch.Tensor, dim: int) -> torch.Tensor:
 class Steps:
     """Runs a step closure n times per `run(n)`: eagerly on the CPU, from
     one captured CUDA graph on the card (eagerly there too when `capture`
-    is False; `capture_reason` says why either way). `capture_seconds` is
-    the time the capture took (with its synchronizations), `replays` the
-    graph's replays, `steps` every step run."""
+    is False; `capture_reason` says why either way). `warmup_seconds` is
+    the time the eager steps before the capture took and `capture_seconds`
+    the capture's (each with its synchronizations: set-up only, never a
+    replayed chunk's), `pool_bytes` the device memory the capture left
+    allocated to the graph's pool, `replays` the graph's replays, `steps`
+    every step run. Each run is a `graphs.run` span (util/profiling.py)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  leaves: Optional[Iterable[torch.Tensor]] = None, capture: bool = True,
@@ -217,7 +226,9 @@ class Steps:
         self.capture = capture
         self.capture_reason = capture_reason
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.warmup_seconds = 0.0
         self.capture_seconds = 0.0
+        self.pool_bytes = 0
         self.replays = 0
         self.steps = 0
         self._warm = 0
@@ -228,25 +239,32 @@ class Steps:
         if n <= 0:
             return
         self.steps += n
-        if self.device.type != "cuda" or not self.capture:
-            for _ in range(n):
-                self.step()
-            return
-        done = 0
-        if self.graph is None:
-            done = min(WARMUP - self._warm, n)
-            if done:
-                self._warm_up(done)
-            if done == n:
+        with span("graphs.run"):
+            if self.device.type != "cuda" or not self.capture:
+                for _ in range(n):
+                    self.step()
                 return
-            self._capture()
-        for _ in range(n - done):
-            self.graph.replay()
+            done = 0
+            if self.graph is None:
+                done = min(WARMUP - self._warm, n)
+                if done:
+                    with span("graphs.warmup"):
+                        self._warm_up(done)
+                if done == n:
+                    return
+                with span("graphs.capture"):
+                    self._capture()
+            with span("graphs.replay"):
+                for _ in range(n - done):
+                    self.graph.replay()
         self.replays += n - done
         chol.launches += self._k1_per_replay * (n - done)
         sharding.calls += self._collectives_per_replay * (n - done)
 
     def _warm_up(self, n: int) -> None:
+        global setup_seconds
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         self._warm += n
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -255,8 +273,13 @@ class Steps:
             for _ in range(n):
                 self.step()
         current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        self.warmup_seconds += seconds
+        setup_seconds += seconds
 
     def _capture(self) -> None:
+        global setup_seconds
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         before = (chol.captured, sharding.captured)
@@ -265,10 +288,13 @@ class Steps:
         # pool (PyTorch's whole-network capture)
         for p in self.leaves:
             p.grad = None
+        allocated = torch.cuda.memory_allocated(self.device)
         with torch.cuda.device(self.device), torch.cuda.graph(graph):
             self.step()
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0
+        setup_seconds += self.capture_seconds
+        self.pool_bytes = torch.cuda.memory_allocated(self.device) - allocated
         self._k1_per_replay = chol.captured - before[0]
         self._collectives_per_replay = sharding.captured - before[1]
         self.graph = graph

@@ -40,6 +40,7 @@ from mobocmf_tpu_torch.mlls.elbo import elbo_terms
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util import heartbeat
+from mobocmf_tpu_torch.util.profiling import span
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
@@ -218,14 +219,17 @@ def draw_chunk(generator, config: M.MFDGPConfig, epochs: int, num_models: int, n
                batch_size: int, dtype, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One chunk's draws: eps (E, B, F-1, n) full batch or (E, B, F-1,
     num_batches*batch) minibatch, and the minibatch permutations (E, B, n)
-    (argsort of f64 uniforms, one per epoch and blackbox), else None."""
-    bsz, num_batches = _batch_plan(n, batch_size)
-    if num_batches == 1:
-        return M.sample_eps(generator, config, n, dtype, device, (epochs, num_models)), None
-    perms = torch.argsort(torch.rand((epochs, num_models, n), generator=generator,
-                                     dtype=torch.float64, device=device), dim=-1)
-    eps = M.sample_eps(generator, config, bsz * num_batches, dtype, device, (epochs, num_models))
-    return eps, perms
+    (argsort of f64 uniforms, one per epoch and blackbox), else None. A
+    `train.draw` span."""
+    with span("train.draw"):
+        bsz, num_batches = _batch_plan(n, batch_size)
+        if num_batches == 1:
+            return M.sample_eps(generator, config, n, dtype, device, (epochs, num_models)), None
+        perms = torch.argsort(torch.rand((epochs, num_models, n), generator=generator,
+                                         dtype=torch.float64, device=device), dim=-1)
+        eps = M.sample_eps(generator, config, bsz * num_batches, dtype, device,
+                           (epochs, num_models))
+        return eps, perms
 
 
 class TrainPhase:
@@ -315,18 +319,26 @@ class TrainPhase:
         ix.advance()
 
     def run_chunk(self, eps: torch.Tensor, perms: Optional[torch.Tensor]) -> EpochLog:
+        """Spans `train.stage` (the draws into the buffers), `graphs.run`,
+        `train.log`."""
         e = eps.shape[0]
-        self.eps_buf[:e].copy_(eps[:, self.models])
-        if self.perm_buf is not None:
-            self.perm_buf[:e].copy_(perms[:, self.models])
-        self.index.reset()
+        with span("train.stage"):
+            self.eps_buf[:e].copy_(eps[:, self.models])
+            if self.perm_buf is not None:
+                self.perm_buf[:e].copy_(perms[:, self.models])
+            self.index.reset()
         self.steps.run(e)
-        return gather_bb(self.mesh, EpochLog(loss=self.loss_buf[:, :e].clone(),
-                                             kl=self.kl_buf[:, :e].clone()))
+        with span("train.log"):
+            return gather_bb(self.mesh, EpochLog(loss=self.loss_buf[:, :e].clone(),
+                                                 kl=self.kl_buf[:, :e].clone()))
 
     def check_finite(self, where: str) -> None:
-        finite = torch.stack([torch.isfinite(t).all() for t in self.trainable.tensors]).all()
-        if not bool(finite):
+        """Raises unless every parameter is finite: one host read (a
+        `train.check` span)."""
+        with span("train.check"):
+            finite = bool(torch.stack([torch.isfinite(t).all()
+                                       for t in self.trainable.tensors]).all())
+        if not finite:
             raise RuntimeError(
                 f"{where}: unconditioned training produced non-finite parameters "
                 "(f32 numerical escape; check safe_cholesky escalation and output scaling)"
@@ -341,8 +353,10 @@ class TrainPhase:
 
 
 def steps_stats(steps: graphs.Steps) -> dict:
-    """A phase's capture record: seconds, replays, steps, captured and why."""
-    return dict(capture_seconds=steps.capture_seconds, replays=steps.replays, steps=steps.steps,
+    """A phase's capture record: the warm-up's and the capture's seconds,
+    the graph pool's bytes, replays, steps, captured and why."""
+    return dict(warmup_seconds=steps.warmup_seconds, capture_seconds=steps.capture_seconds,
+                pool_bytes=steps.pool_bytes, replays=steps.replays, steps=steps.steps,
                 captured=steps.capture, capture_reason=steps.capture_reason)
 
 
@@ -436,9 +450,10 @@ def train_phase_stacked_chunked(
     train_phase_stacked_carry, eps and perms for the whole phase). Each
     chunk's draws are made before it runs; after it, heartbeat
     `train:chunk{ci}`, then the parameters must be finite (RuntimeError
-    naming `label` otherwise). `stats`, when given, receives the chunks,
-    the capture seconds, the graph replays, the steps and whether the
-    phase was captured (and why). mesh: train over ('bb', 'dp')."""
+    naming `label` otherwise). `stats`, when given, receives the chunks
+    and `steps_stats`: the warm-up and capture seconds, the graph pool's
+    bytes, the replays, the steps and whether the phase was captured (and
+    why). mesh: train over ('bb', 'dp')."""
     sizes = chunk_sizes(num_epochs, x.shape[0])
     phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
                        num_data, max(sizes, default=1), mesh=mesh)

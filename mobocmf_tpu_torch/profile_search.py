@@ -24,12 +24,16 @@ patched to answer no, so every piece runs eagerly on the card):
 - polish: one MOOP device polish (5 starts, 100 iterations) of bc512's
   first objective's RFF posterior sample under its constraint's.
 Then each arm once more, cut to PROFILE_ITERS iterations, under
-torch.profiler: the card's busy time (kernels and copies) per evaluation.
+torch.profiler: the card's busy time (kernels and copies) per evaluation,
+and the host time of each of the search's spans (acquisition/lbfgs.py:
+`lbfgs.fresh`, `lbfgs.prologue`, `lbfgs.step`, `lbfgs.epilogue`,
+`lbfgs.read`) over that search.
 Prints one JSON row per run: seconds (synchronized on both ends), ms per
 evaluation, iterations, evaluations and evaluations per iteration, how the
 lanes ended, the line-search steps per lane and iteration, the capture
-seconds and replays, and per arm the device ms per evaluation; then the
-card's name and power limit. With --json, writes the rows to PATH.
+seconds and replays, and per arm the device ms per evaluation and the
+spans' host ms; then the card's name and power limit. With --json, writes
+the rows to PATH.
 """
 
 from __future__ import annotations
@@ -128,20 +132,28 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def _device_ms(fn, device) -> float:
-    """The card's busy time (its kernels and copies) over one call of fn
-    under torch.profiler, in ms; on the CPU fn runs untraced (None)."""
-    if device.type != "cuda":
+def _profiled(fn, device):
+    """One call of fn under torch.profiler: the card's busy time (its
+    kernels and copies, not the device-side copies of the host's spans) in
+    ms (None on the CPU), and the host ms of each `lbfgs.*` span, summed."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
         fn()
-        return None
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(evt.time_range.elapsed_us() for evt in prof.events()
-               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    busy_us, spans = 0.0, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if not evt.is_user_annotation:
+                busy_us += evt.time_range.elapsed_us()
+        elif evt.name.startswith("lbfgs."):
+            spans[evt.name] = spans.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    return (busy_us / 1e3 if device.type == "cuda" else None), spans
 
 
-def _row(path, arm, seconds, stats, values=None, device_ms=None) -> dict:
+def _row(path, arm, seconds, stats, values=None, device_ms=None, span_ms=None) -> dict:
     its = max(stats["iterations"], 1)
     evals = max(stats["evaluations"], 1)
     row = dict(path=path, arm=arm, seconds=seconds,
@@ -153,7 +165,7 @@ def _row(path, arm, seconds, stats, values=None, device_ms=None) -> dict:
                ls_steps_mean=stats["ls_steps_mean"], ls_steps_max=stats["ls_steps_max"],
                failed_searches=stats["failed_searches"], captured=stats["captured"],
                capture_seconds=stats["capture_seconds"], replays=stats["replays"],
-               values=values)
+               values=values, span_ms=span_ms)
     print(json.dumps(row), flush=True)
     return row
 
@@ -170,8 +182,8 @@ def _runs(path, device, run) -> list:
         rows.append(_row(path, arm, seconds, lbfgs.last_stats, values))
     for arm in ("eager", "captured"):
         with _arm(arm):
-            ms = _device_ms(lambda: run(PROFILE_ITERS), device)
-        rows.append(_row(path, f"{arm} profiled", None, lbfgs.last_stats, None, ms))
+            ms, span_ms = _profiled(lambda: run(PROFILE_ITERS), device)
+        rows.append(_row(path, f"{arm} profiled", None, lbfgs.last_stats, None, ms, span_ms))
     return rows
 
 
