@@ -101,7 +101,8 @@ class BlackBoxMFDGPFitter:
         # one entry per trained phase: epochs, seconds, first/last summed
         # loss, K1 launches and ladder escalations during the phase, and its
         # capture record (trainer.steps_stats: warm-up and capture seconds,
-        # the graph pool's bytes, replays, captured and why)
+        # the graph pool's bytes, replays, layer states built through the
+        # explicit inverse, captured and why)
         self.phase_stats: List[dict] = []
         # seconds of initialize_mfdgp's warm-start fetch, host math and ship
         # to the device, summed over blackboxes (models/mfdgp.py::init_mfdgp)
@@ -195,6 +196,7 @@ class BlackBoxMFDGPFitter:
             escalations=chol.escalations() - esc0,
             warmup_seconds=stats["warmup_seconds"], capture_seconds=stats["capture_seconds"],
             pool_bytes=stats["pool_bytes"], replays=stats["replays"],
+            inv_states=stats["inv_states"],
             captured=stats["captured"], capture_reason=stats["capture_reason"],
         )
 

@@ -32,8 +32,10 @@ switch, read when a phase builds its optimizer), as one flat tensor.
 Kernel counters: K1's wrapper called while its stream is capturing adds
 to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
 launches of every replay to `launches`, and likewise the collectives of
-every replay (parallel/sharding.py::captured) to `sharding.calls`. (K2
-runs only without gradients, never inside a captured step.) `close()`
+every replay (parallel/sharding.py::captured) to `sharding.calls`, and
+the layer states built through the explicit inverse of every replay
+(linalg/ops.py::inv_captured) to `ops.inv_launches`. (K2 runs only
+without gradients, never inside a captured step.) `close()`
 frees the graph and its memory pool at the end of the phase.
 
 The candidate searches and the MOOP's device polish run their L-BFGS
@@ -54,7 +56,7 @@ from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 
-from mobocmf_tpu_torch.linalg import chol
+from mobocmf_tpu_torch.linalg import chol, ops
 from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util.profiling import span
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map, tree_unflatten
@@ -215,7 +217,9 @@ class Steps:
     the capture's (each with its synchronizations: set-up only, never a
     replayed chunk's), `pool_bytes` the device memory the capture left
     allocated to the graph's pool, `replays` the graph's replays, `steps`
-    every step run. Each run is a `graphs.run` span (util/profiling.py)."""
+    every step run, `inv_states` the layer states its steps built through
+    the explicit inverse (linalg/ops.py::safe_cholesky_inv). Each run is a
+    `graphs.run` span (util/profiling.py)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  leaves: Optional[Iterable[torch.Tensor]] = None, capture: bool = True,
@@ -231,35 +235,43 @@ class Steps:
         self.pool_bytes = 0
         self.replays = 0
         self.steps = 0
+        self.inv_states = 0
         self._warm = 0
         self._k1_per_replay = 0
         self._collectives_per_replay = 0
+        self._inv_per_replay = 0
 
     def run(self, n: int) -> None:
         if n <= 0:
             return
         self.steps += n
+        inv0 = ops.inv_launches
         with span("graphs.run"):
-            if self.device.type != "cuda" or not self.capture:
-                for _ in range(n):
-                    self.step()
+            self._dispatch(n)
+        self.inv_states += ops.inv_launches - inv0
+
+    def _dispatch(self, n: int) -> None:
+        if self.device.type != "cuda" or not self.capture:
+            for _ in range(n):
+                self.step()
+            return
+        done = 0
+        if self.graph is None:
+            done = min(WARMUP - self._warm, n)
+            if done:
+                with span("graphs.warmup"):
+                    self._warm_up(done)
+            if done == n:
                 return
-            done = 0
-            if self.graph is None:
-                done = min(WARMUP - self._warm, n)
-                if done:
-                    with span("graphs.warmup"):
-                        self._warm_up(done)
-                if done == n:
-                    return
-                with span("graphs.capture"):
-                    self._capture()
-            with span("graphs.replay"):
-                for _ in range(n - done):
-                    self.graph.replay()
+            with span("graphs.capture"):
+                self._capture()
+        with span("graphs.replay"):
+            for _ in range(n - done):
+                self.graph.replay()
         self.replays += n - done
         chol.launches += self._k1_per_replay * (n - done)
         sharding.calls += self._collectives_per_replay * (n - done)
+        ops.inv_launches += self._inv_per_replay * (n - done)
 
     def _warm_up(self, n: int) -> None:
         global setup_seconds
@@ -282,7 +294,7 @@ class Steps:
         global setup_seconds
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        before = (chol.captured, sharding.captured)
+        before = (chol.captured, sharding.captured, ops.inv_captured)
         graph = torch.cuda.CUDAGraph()
         # the step's first backward allocates its gradients from the graph's
         # pool (PyTorch's whole-network capture)
@@ -297,6 +309,7 @@ class Steps:
         self.pool_bytes = torch.cuda.memory_allocated(self.device) - allocated
         self._k1_per_replay = chol.captured - before[0]
         self._collectives_per_replay = sharding.captured - before[1]
+        self._inv_per_replay = ops.inv_captured - before[2]
         self.graph = graph
 
     def close(self) -> None:

@@ -354,10 +354,12 @@ class TrainPhase:
 
 def steps_stats(steps: graphs.Steps) -> dict:
     """A phase's capture record: the warm-up's and the capture's seconds,
-    the graph pool's bytes, replays, steps, captured and why."""
+    the graph pool's bytes, replays, steps, the layer states built through
+    the explicit inverse (F a step in float64), captured and why."""
     return dict(warmup_seconds=steps.warmup_seconds, capture_seconds=steps.capture_seconds,
                 pool_bytes=steps.pool_bytes, replays=steps.replays, steps=steps.steps,
-                captured=steps.capture, capture_reason=steps.capture_reason)
+                inv_states=steps.inv_states, captured=steps.capture,
+                capture_reason=steps.capture_reason)
 
 
 def _phase_draws(generator, phase: TrainPhase, start, count, eps, perms):

@@ -7,7 +7,16 @@ factorization at the caller's jitter (the reference's 2e-6). Its backward
 is evaluated on the final finite factor only (`chol_pullback`), as a
 torch.autograd.Function, so failed attempts never enter autograd.
 `cholesky` is the exact-GP models' factor: K1 with no jitter and no
-ladder, through the same Function.
+ladder, through the same Function. `safe_cholesky_inv` adds the explicit
+inverse L^{-1} (one triangular solve) and differentiates both outputs with
+GEMMs on the saved L and L^{-1}; `tri_solve_lower(l, b, l_inv)` is the
+product with L^{-1} in place of the solve, differentiated by GEMMs too,
+so such a caller runs one triangular solve a factor, backward included.
+
+Counters: `inv_launches` counts `safe_cholesky_inv` calls that ran; one
+made while the stream is being captured into a CUDA graph adds to
+`inv_captured` instead, and fit/graphs.py adds the calls of every replay
+to `inv_launches` (linalg/chol.py's convention).
 
 Convention: JAX's solve_triangular(l.T, b, lower=False) is
 torch.linalg.solve_triangular(l.mT, b, upper=True) here.
@@ -15,33 +24,55 @@ torch.linalg.solve_triangular(l.mT, b, upper=True) here.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from mobocmf_tpu_torch.linalg.chol import cholesky as k1_cholesky
+
+# safe_cholesky_inv calls that ran since the last reset_counts(), and calls
+# recorded into CUDA graphs being captured (run at replay)
+inv_launches = 0
+inv_captured = 0
+
+
+def reset_counts() -> None:
+    global inv_launches, inv_captured
+    inv_launches = 0
+    inv_captured = 0
 
 
 def add_jitter(k: torch.Tensor, jitter: float) -> torch.Tensor:
     return k + jitter * torch.eye(k.shape[-1], dtype=k.dtype, device=k.device)
 
 
-def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
+def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor,
+                  l_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """VJP of K -> chol(K) evaluated at a FINITE factor L:
     K_bar = 0.5 (C + C^T), C = L^{-T} phi(L^T L_bar) L^{-1},
-    phi = tril with halved diagonal."""
+    phi = tril with halved diagonal. Given l_inv = L^{-1}, C is two GEMMs
+    in place of two triangular solves."""
     p = l.mT @ l_bar
     phi = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
-    x1 = torch.linalg.solve_triangular(l.mT, phi, upper=True)
-    c = torch.linalg.solve_triangular(l.mT, x1.mT, upper=True).mT
+    if l_inv is None:
+        x1 = torch.linalg.solve_triangular(l.mT, phi, upper=True)
+        c = torch.linalg.solve_triangular(l.mT, x1.mT, upper=True).mT
+    else:
+        c = l_inv.mT @ phi @ l_inv
     return 0.5 * (c + c.mT)
+
+
+def _factor(k, jitter, ladder):
+    # (k + k^T) / 2 first, as jnp.linalg.cholesky symmetrizes its input:
+    # a Gram from the expansion trick is symmetric only to rounding, and
+    # the factor of an ill-conditioned Kzz amplifies that difference
+    return k1_cholesky((k + k.mT) / 2, jitter, ladder=ladder)
 
 
 class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, jitter, ladder):
-        # (k + k^T) / 2 first, as jnp.linalg.cholesky symmetrizes its input:
-        # a Gram from the expansion trick is symmetric only to rounding, and
-        # the factor of an ill-conditioned Kzz amplifies that difference
-        l, level = k1_cholesky((k + k.mT) / 2, jitter, ladder=ladder)
+        l, level = _factor(k, jitter, ladder)
         ctx.save_for_backward(l)
         ctx.mark_non_differentiable(level)
         return l, level
@@ -50,6 +81,66 @@ class _SafeCholesky(torch.autograd.Function):
     def backward(ctx, l_bar, _level_bar):
         (l,) = ctx.saved_tensors
         return chol_pullback(l, l_bar), None, None
+
+
+class _SafeCholeskyInv(torch.autograd.Function):
+    """(L, level, L^{-1}): _SafeCholesky's factor and its inverse by one
+    triangular solve. Backward, GEMMs only: an adjoint G of L^{-1} itself
+    adds -tril(L^{-T} G L^{-T}) to L_bar (torch's solve_triangular backward
+    at B = I), then chol_pullback through the saved inverse. Products with
+    L^{-1} taken through `tri_solve_lower` send their adjoint to L_bar
+    instead, and G stays None."""
+
+    @staticmethod
+    def forward(ctx, k, jitter, ladder):
+        l, level = _factor(k, jitter, ladder)
+        eye = torch.eye(l.shape[-1], dtype=l.dtype, device=l.device)
+        l_inv = torch.linalg.solve_triangular(l, eye, upper=False)
+        ctx.save_for_backward(l, l_inv)
+        ctx.mark_non_differentiable(level)
+        ctx.set_materialize_grads(False)
+        return l, level, l_inv
+
+    @staticmethod
+    def backward(ctx, l_bar, _level_bar, l_inv_bar):
+        l, l_inv = ctx.saved_tensors
+        if l_bar is None:
+            l_bar = torch.zeros_like(l)
+        if l_inv_bar is not None:
+            l_bar = l_bar - torch.tril(l_inv.mT @ l_inv_bar @ l_inv.mT)
+        return chol_pullback(l, l_bar, l_inv), None, None
+
+
+class _SolveByInverse(torch.autograd.Function):
+    """W = L^{-1} B (L^{-T} B with `trans`) by GEMMs with the inverse,
+    differentiated as torch's solve_triangular is, by GEMMs:
+    B_bar = L^{-T} W_bar and L_bar = -tril(B_bar W^T) (with `trans`,
+    B_bar = L^{-1} W_bar and L_bar = -tril(W B_bar^T)). The inverse gets
+    no adjoint: its dependence on L is in L_bar.
+
+    W = X B alone errs by the inverse's own error times B, up to cond(L)
+    times the solve's; one refinement step, W + X (B - L W), brings it to
+    the solve's. Unrefined, the float64 steps of an ill-conditioned model
+    drift 3-4x further apart under a change of summation order (the 'dp'
+    mesh against one process, tests/test_torch_sharding.py)."""
+
+    @staticmethod
+    def forward(ctx, l, l_inv, b, trans):
+        x, a = (l_inv.mT, l.mT) if trans else (l_inv, l)
+        w = x @ b
+        w = w + x @ (b - a @ w)
+        ctx.save_for_backward(l_inv, w)
+        ctx.trans = trans
+        return w
+
+    @staticmethod
+    def backward(ctx, w_bar):
+        l_inv, w = ctx.saved_tensors
+        b_bar = (l_inv if ctx.trans else l_inv.mT) @ w_bar
+        l_bar = None
+        if ctx.needs_input_grad[0]:
+            l_bar = -torch.tril(w @ b_bar.mT if ctx.trans else b_bar @ w.mT)
+        return l_bar, None, b_bar if ctx.needs_input_grad[2] else None, None
 
 
 def _diag_scale(k: torch.Tensor) -> torch.Tensor:
@@ -67,6 +158,20 @@ def safe_cholesky_level(k: torch.Tensor, jitter):
     `ladder_jitter` rebuilds the jitter a rung stands for).
     `jitter` is a float or a per-matrix tensor."""
     return _SafeCholesky.apply(k.contiguous(), jitter, k.dtype != torch.float64)
+
+
+def safe_cholesky_inv(k: torch.Tensor, jitter):
+    """safe_cholesky_level's factor and rung, and the factor's inverse
+    L^{-1} (lower): (l, level, l_inv), differentiable through l and l_inv
+    by GEMMs alone (`_SafeCholeskyInv`). Multiply by l_inv through
+    `tri_solve_lower(l, b, l_inv)`."""
+    global inv_launches, inv_captured
+    out = _SafeCholeskyInv.apply(k.contiguous(), jitter, k.dtype != torch.float64)
+    if k.is_cuda and torch.cuda.is_current_stream_capturing():
+        inv_captured += 1
+    else:
+        inv_launches += 1
+    return out
 
 
 def cholesky(k: torch.Tensor) -> torch.Tensor:
@@ -105,8 +210,17 @@ def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l.mT, y, upper=True)
 
 
-def tri_solve_lower(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.solve_triangular(l, b, upper=False)
+def tri_solve_lower(l: torch.Tensor, b: torch.Tensor, l_inv: Optional[torch.Tensor] = None,
+                    trans: bool = False) -> torch.Tensor:
+    """L^{-1} b, or L^{-T} b with `trans`: a triangular solve, or given
+    l_inv = L^{-1} GEMMs: one where nothing differentiates l (the
+    acquisition's states), else `_SolveByInverse`'s refined product and
+    its GEMM backward."""
+    if l_inv is None:
+        return torch.linalg.solve_triangular(l.mT if trans else l, b, upper=trans)
+    if torch.is_grad_enabled() and l.requires_grad:
+        return _SolveByInverse.apply(l, l_inv, b, trans)
+    return (l_inv.mT if trans else l_inv) @ b
 
 
 def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:

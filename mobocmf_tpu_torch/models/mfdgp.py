@@ -58,7 +58,8 @@ from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device, resolve_dt
 from mobocmf_tpu_torch.core.distances import median_lengthscale_np
 from mobocmf_tpu_torch.kernels import deep_mf, rbf
 from mobocmf_tpu_torch.linalg.fused_svgp import fused_rbf_svgp_forward
-from mobocmf_tpu_torch.linalg.ops import ladder_jitter, safe_cholesky_level
+from mobocmf_tpu_torch.linalg.ops import (
+    ladder_jitter, safe_cholesky_inv, safe_cholesky_level, tri_solve_lower)
 from mobocmf_tpu_torch.models import svgp
 from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util.tree import tree_map
@@ -354,7 +355,7 @@ class LayerState(NamedTuple):
     w_mean: torch.Tensor  # (B, M)
     w_ls: torch.Tensor  # (B, M, M)
     level: torch.Tensor  # (B,) jitter-ladder rung lk ended on (linalg/ops.py)
-    lk_inv: Optional[torch.Tensor] = None  # explicit L^{-1}, acquisition loops only
+    lk_inv: Optional[torch.Tensor] = None  # explicit L^{-1}: inverse route, acquisition loops
     # inducing sharding: the group the rows of z are split over (z is whole
     # here) and the gathered variational parameters
     inducing: Optional[object] = None
@@ -367,8 +368,10 @@ def compute_layer_states(
     """Resolve the dynamic inducing chain once per forward: Z_0 = z_x,
     Z_ell = [z_x, mu_{ell-1}(Z_{ell-1})], with the predictive mean at the
     inducing inputs m - jitter * (Kzz + jitter I)^{-1} m. One K1 launch per
-    layer factorizes every blackbox's Kzz. Inducing-sharded consts (the
-    module docstring) compute the Gram's row blocks and gather them."""
+    layer factorizes every blackbox's Kzz; a state differentiated in
+    float64 also carries L^{-1} and multiplies by it where the others solve
+    (`inverse_route`). Inducing-sharded consts (the module docstring)
+    compute the Gram's row blocks and gather them."""
     states: List[LayerState] = []
     chain_mean = None
     group = getattr(consts, "inducing", None)
@@ -388,10 +391,15 @@ def compute_layer_states(
         else:
             z_b = z_x.expand(chain_mean.shape[:-1] + z_x.shape)
             z = torch.cat([z_b, chain_mean.unsqueeze(-1)], dim=-1)
-        lk, level = safe_cholesky_level(gram(lp.kernel, z, z), config.jitter)
-        w_mean, w_ls = svgp.solve_variational(var, lk, config.whitened)
-        lk_inv = None
-        if with_inv:
+        kzz = gram(lp.kernel, z, z)
+        route = inverse_route(kzz)
+        if route:
+            lk, level, lk_inv = safe_cholesky_inv(kzz, config.jitter)
+        else:
+            lk, level = safe_cholesky_level(kzz, config.jitter)
+            lk_inv = None
+        w_mean, w_ls = svgp.solve_variational(var, lk, config.whitened, lk_inv)
+        if with_inv and not route:
             eye = torch.eye(lk.shape[-1], dtype=lk.dtype, device=lk.device)
             lk_inv = torch.linalg.solve_triangular(lk, eye, upper=False)
         states.append(
@@ -400,15 +408,28 @@ def compute_layer_states(
         )
         if ell + 1 < config.num_fidelities and not config.only_hf:
             m = var.mean
+            inv = lk_inv if route else None  # with_inv's inverse leaves the solves
             if config.whitened:
                 # mu(Z) = L m_w - jitter * L^{-T} m_w
-                lt_inv_m = torch.linalg.solve_triangular(lk.mT, m.unsqueeze(-1), upper=True)
-                chain_mean = (lk @ m.unsqueeze(-1))[..., 0] - config.jitter * lt_inv_m[..., 0]
+                back = tri_solve_lower(lk, m.unsqueeze(-1), inv, trans=True)[..., 0]
+                chain_mean = (lk @ m.unsqueeze(-1))[..., 0] - config.jitter * back
             else:
                 # m - jitter * Kzz^{-1} m, reusing w_mean = L^{-1} m
-                back = torch.linalg.solve_triangular(lk.mT, w_mean.unsqueeze(-1), upper=True)
-                chain_mean = m - config.jitter * back[..., 0]
+                back = tri_solve_lower(lk, w_mean.unsqueeze(-1), inv, trans=True)[..., 0]
+                chain_mean = m - config.jitter * back
     return states
+
+
+def inverse_route(kzz: torch.Tensor) -> bool:
+    """Whether compute_layer_states factors this Gram through the explicit
+    inverse (linalg/ops.py::safe_cholesky_inv): when the state is being
+    differentiated with respect to the model (grad mode on and the Gram
+    requiring grad: training and conditioning) in float64. There every
+    solve but L^{-1}'s own becomes a GEMM, backward included. Everything
+    else keeps the solves: the searches and the polish are matched to the
+    JAX package's iterates, and float32 is not faithful yet."""
+    return torch.is_grad_enabled() and kzz.requires_grad and kzz.dtype == torch.float64
+
 
 
 def uses_k2(config: MFDGPConfig, x: torch.Tensor) -> bool:

@@ -54,14 +54,16 @@ def init_variational(mean: np.ndarray, cov: np.ndarray) -> Tuple[np.ndarray, np.
 
 
 def solve_variational(
-    var: SVGPVariational, lk: torch.Tensor, whitened: bool
+    var: SVGPVariational, lk: torch.Tensor, whitened: bool,
+    lk_inv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(w_mean, w_ls): L^{-1} m and L^{-1} L_S unwhitened (one multi-RHS
-    solve), m_w and L_S whitened."""
+    solve, or one GEMM given lk_inv = L^{-1}), m_w and L_S whitened."""
     ls = torch.tril(var.chol_raw)
     if whitened:
         return var.mean, ls
-    sol = tri_solve_lower(lk, torch.cat([var.mean.unsqueeze(-1), ls], dim=-1))
+    rhs = torch.cat([var.mean.unsqueeze(-1), ls], dim=-1)
+    sol = tri_solve_lower(lk, rhs, lk_inv)
     return sol[..., 0], sol[..., 1:]
 
 
@@ -83,7 +85,7 @@ def predict_diag_state(
 
     lk_inv: optional explicit L^{-1}, turning the per-x solve into a matmul."""
     kzx = kernel_gram(kparams, z, x)
-    w = lk_inv @ kzx if lk_inv is not None else tri_solve_lower(lk, kzx)
+    w = tri_solve_lower(lk, kzx, lk_inv)
     mu = (w.mT @ w_mean.unsqueeze(-1))[..., 0]
     kxx = kernel_diag(kparams, x)
     v1 = torch.sum(w * w, dim=-2)

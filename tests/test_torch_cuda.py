@@ -719,6 +719,73 @@ def test_counters_under_replay(cuda_device):
     assert chol.escalations() == 0
 
 
+def _trsm_per_call(fn, calls=2) -> float:
+    """cuBLAS trsm kernels per call of fn, counted from profiler sessions
+    that recorded whole calls (mobocmf_tpu_torch/profiling.py's rule)."""
+    from collections import Counter
+
+    from mobocmf_tpu_torch import profiling
+
+    for _ in range(profiling.TRIES):
+        counts = Counter(name for name, _, _ in profiling._session(fn, calls))
+        if not profiling.missing_events(counts, calls):
+            return sum(c for name, c in counts.items() if "trsm" in name.lower()) / calls
+    raise RuntimeError("profiler sessions kept losing events")
+
+
+def test_captured_f64_training_step_solves_once_a_layer(cuda_device):
+    """A captured float64 training step at B = 3, m = 512, F = 2 builds its
+    layer states through the explicit inverse: a replay runs the trsm
+    kernels of F solves (one solve_triangular(L, I) a layer, counted from a
+    profiler slice), and its loss and gradients match the solve route's,
+    run eagerly on the card, to 1e-9 relative (the gradient relative to
+    its largest entry)."""
+    from mobocmf_tpu_torch.mlls.elbo import elbo_terms
+    from mobocmf_tpu_torch.profiling import patched
+    from mobocmf_tpu_torch.util.tree import tree_map
+
+    dev, n, nf = cuda_device, 512, 2
+    x, fid, ys = _chunk_problem(n, seed=5)
+    ys = np.concatenate([ys, (0.25 - np.sum((x - 0.5) ** 2, axis=1))[None]])
+    models = [M.init_mfdgp(x, y, fid, nf, generator=torch.Generator().manual_seed(i),
+                           device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
+    model = trainer.stack_models(models)
+    xt, yt, ft = (torch.as_tensor(a, device=dev) for a in (x, ys, fid))
+    eps = torch.randn((3, 3, nf - 1, n), generator=torch.Generator().manual_seed(2),
+                      dtype=torch.float64).to(dev)
+    # lr 0: every step differentiates the initial model
+    phase = trainer.TrainPhase(model, xt, yt, ft, 0.0, "all_free", n, chunk=3)
+    try:
+        ops.reset_counts()
+        phase.run_chunk(eps, None)  # two eager steps, the capture, one replay
+        assert phase.steps.replays == 1 and ops.inv_launches == 3 * nf
+        one = eps[:1]
+        replay = _trsm_per_call(lambda: phase.run_chunk(one, None))
+        l = torch.linalg.cholesky(_spd(3, n, 1, torch.float64, dev))
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        solve = _trsm_per_call(lambda: torch.linalg.solve_triangular(l, eye, upper=False))
+        assert solve >= 1 and replay == nf * solve, (replay, solve)
+        phase.run_chunk(one, None)
+        torch.cuda.synchronize()
+        loss, grads = phase.loss_buf[:, 0].clone(), [g.clone() for g in phase.trainable.grads()]
+        masks = phase.trainable.masks
+    finally:
+        phase.close()
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), model.params)
+    with patched(M, "inverse_route", lambda kzz: False):
+        elbo, _ = elbo_terms(params, model.consts, model.config, xt, yt, ft, eps[0],
+                             torch.tensor(float(n), dtype=torch.float64, device=dev),
+                             weights=torch.ones(n, dtype=torch.float64, device=dev))
+    torch.sum(-elbo).backward()
+    want = [p.grad if m is None else p.grad * m for p, m in zip(tree_leaves(params), masks)]
+    _assert_rel([loss], [-elbo.detach()], 1e-9)
+    # the gradient relative to its largest entry: a leaf whose entries
+    # cancel moves by ~1e-9 of itself under a 1e-15 change of the
+    # parameters on either route
+    scale = max(float(w.abs().max()) for w in want)
+    assert max(float((g.cpu() - w.cpu()).abs().max()) for g, w in zip(grads, want)) < 1e-9 * scale
+
+
 def test_fitter_with_captured_phases_pickles_on_card(cuda_device, tmp_path):
     """A fitter whose phases ran from CUDA graphs (training, Pareto sample,
     conditioned training) pickles and unpickles on the card: the same

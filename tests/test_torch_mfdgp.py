@@ -17,7 +17,7 @@ from mobocmf_tpu.models import mfdgp as JM
 from mobocmf_tpu_torch.mlls.elbo import elbo_terms
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.convert import model_from_numpy, model_to_numpy
-from mobocmf_tpu_torch.util.tree import tree_leaves
+from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 F64 = torch.float64
 
@@ -289,3 +289,76 @@ def test_svgp_predict_mean_matches_jax(given_factor):
                                    torch.as_tensor(xt), jitter, lk_p)
     np.testing.assert_allclose(mu_p[0].numpy(), np.asarray(mu_j), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(lk_p[0].numpy(), np.asarray(lk_j), rtol=1e-12, atol=1e-12)
+
+
+def _states_by_solves(params, consts, config):
+    """compute_layer_states with every product by L^{-1} a triangular solve
+    (the route of the states nothing differentiates): (lk, level, w_mean,
+    w_ls) per layer."""
+    from mobocmf_tpu_torch.linalg.ops import safe_cholesky_level
+    from mobocmf_tpu_torch.models import svgp
+
+    out, chain_mean = [], None
+    for ell in range(config.num_fidelities):
+        gram, _ = M._layer_fns(ell, config.only_hf)
+        lp, z_x = params.layers[ell], consts.z_x[ell]
+        if ell == 0:
+            z = z_x
+        else:
+            z = torch.cat([z_x.expand(chain_mean.shape[:-1] + z_x.shape),
+                           chain_mean.unsqueeze(-1)], dim=-1)
+        lk, level = safe_cholesky_level(gram(lp.kernel, z, z), config.jitter)
+        w_mean, w_ls = svgp.solve_variational(lp.variational, lk, config.whitened)
+        out.append((lk, level, w_mean, w_ls))
+        m = lp.variational.mean
+        if config.whitened:
+            back = torch.linalg.solve_triangular(lk.mT, m.unsqueeze(-1), upper=True)
+            chain_mean = (lk @ m.unsqueeze(-1))[..., 0] - config.jitter * back[..., 0]
+        else:
+            back = torch.linalg.solve_triangular(lk.mT, w_mean.unsqueeze(-1), upper=True)
+            chain_mean = m - config.jitter * back[..., 0]
+    return out
+
+
+@pytest.mark.parametrize("dtype,grad,whitened", [
+    (torch.float64, True, False), (torch.float64, True, True),
+    (torch.float64, False, False), (torch.float64, False, True),
+    (torch.float32, True, False),
+], ids=["f64-grad", "f64-grad-whitened", "f64-no-grad", "f64-no-grad-whitened", "f32-grad"])
+def test_layer_states_take_the_inverse_route_when_differentiated_at_f64(dtype, grad, whitened):
+    """compute_layer_states factors through L^{-1} (ops.safe_cholesky_inv,
+    one count a layer) exactly when the Gram requires grad at float64;
+    otherwise it is bitwise the solves. On the route, layer 0's factor is
+    the solves' and every state's products match the solves on its own
+    factor to 1e-11; a deeper factor, whose Gram takes the inducing chain's
+    mean, matches the solves' to 1e-11 (the chain's rounding moves its
+    products by up to cond(Kzz) times that, 4e-11 here)."""
+    from mobocmf_tpu_torch.linalg import ops
+    from mobocmf_tpu_torch.models import svgp
+
+    x, y, fid = _data(8)
+    pm = M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(0), device="cpu",
+                      dtype=dtype, whitened=whitened)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), pm.params)
+    ops.reset_counts()
+    with torch.set_grad_enabled(grad):
+        states = M.compute_layer_states(params, pm.consts, pm.config)
+        want = _states_by_solves(params, pm.consts, pm.config)
+    route = grad and dtype == torch.float64
+    assert ops.inv_launches == (2 if route else 0)
+
+    def rel(a, b):
+        return float((a - b).detach().abs().max() / b.detach().abs().max())
+
+    for ell, (st, (lk, level, w_mean, w_ls)) in enumerate(zip(states, want)):
+        assert torch.equal(st.level, level)
+        assert (st.lk_inv is not None) == route
+        if not route:
+            for got, ref in ((st.lk, lk), (st.w_mean, w_mean), (st.w_ls, w_ls)):
+                assert torch.equal(got, ref)
+            continue
+        assert rel(st.lk, lk) <= (0.0 if ell == 0 else 1e-11)
+        with torch.no_grad():
+            own = svgp.solve_variational(params.layers[ell].variational, st.lk, whitened)
+        for got, ref in zip((st.w_mean, st.w_ls), own):
+            assert rel(got, ref) < 1e-11

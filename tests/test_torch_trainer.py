@@ -187,6 +187,27 @@ def test_fitter_end_to_end_with_padding():
     assert bool(torch.isfinite(mus).all()) and bool((var > 0).all())
 
 
+@pytest.mark.parametrize("dtype,batch_size,per_epoch", [
+    (F64, 14, 2), (F64, 5, 6), (torch.float32, 14, 0),
+], ids=["f64-full-batch", "f64-minibatch", "f32"])
+def test_phase_counts_its_layer_states_through_the_inverse(dtype, batch_size, per_epoch):
+    """`steps_stats`' inv_states: F layer states an update through the
+    explicit inverse at float64 (3 minibatches an epoch at 5 of 14 rows),
+    none at float32; linalg/ops.py's counter moves by as much."""
+    from mobocmf_tpu_torch.linalg import ops
+
+    x, ys, fid = _problem()
+    models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                           device="cpu", dtype=dtype) for i, y in enumerate(ys)]
+    stats = {}
+    ops.reset_counts()
+    trainer.train_phase_stacked_chunked(
+        trainer.stack_models(models), torch.as_tensor(x, dtype=dtype),
+        torch.as_tensor(ys, dtype=dtype), torch.as_tensor(fid), 3, 1e-3, "all_free", batch_size,
+        generator=torch.Generator().manual_seed(1), stats=stats)
+    assert stats["inv_states"] == ops.inv_launches == 3 * per_epoch
+
+
 def test_fitter_rejects_mismatched_inputs():
     x, ys, fid = _problem()
     pf = fitter.BlackBoxMFDGPFitter(2, 100, device="cpu", dtype=F64)
