@@ -11,6 +11,9 @@
   test_functions/prior_problem.py::sample_problem and
   sampling/rff.py::sample_prior / eval_sample.
 
+Any other problem is a file of its own, port_bench/blackboxes/<problem>.py,
+that defines `make(config, device)`; a configuration names it by its stem.
+
 The copies live here so that a change to the program does not change the
 benchmark's data. `make(config, device)` returns the blackboxes as
 (name, is_constraint, threshold, [fn per fidelity]), each fn taking an
@@ -19,7 +22,10 @@ benchmark's data. `make(config, device)` returns the blackboxes as
 
 from __future__ import annotations
 
+import importlib.util
 import math
+import re
+from pathlib import Path
 from typing import Callable, List, NamedTuple, Sequence
 
 import numpy as np
@@ -171,10 +177,26 @@ def prior(config: dict, device) -> List[Blackbox]:
 
 
 PROBLEMS = {"branin_currin": branin_currin, "prior": prior}
+BLACKBOXES = Path(__file__).resolve().parent / "blackboxes"
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def make(config: dict, device) -> List[Blackbox]:
-    return PROBLEMS[config["problem"]](config, device)
+    """The configuration's problem: one of PROBLEMS, or the `make` of its
+    file under BLACKBOXES; a name found in both places or in neither raises."""
+    name = config["problem"]
+    path = BLACKBOXES / f"{name}.py"
+    in_file = bool(NAME.fullmatch(name)) and path.is_file()
+    if (name in PROBLEMS) == in_file:
+        where = "both in" if in_file else "neither in"
+        raise ValueError(f"problem {name!r} is {where} problems.PROBLEMS "
+                         f"({', '.join(sorted(PROBLEMS))}) {'and' if in_file else 'nor'} {path}")
+    if name in PROBLEMS:
+        return PROBLEMS[name](config, device)
+    spec = importlib.util.spec_from_file_location(f"port_bench_blackbox_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make(config, device)
 
 
 class Data(NamedTuple):
@@ -191,14 +213,26 @@ class Data(NamedTuple):
     thresholds: List[float]
 
 
+def fidelity_counts(config: dict) -> List[int]:
+    """Initial points per fidelity, lowest first: the configuration's
+    `n_per_fidelity`, else [n_low, n_high]; one count of at least 1 for
+    each of its `num_fidelities`."""
+    counts = config.get("n_per_fidelity") or [config["n_low"], config["n_high"]]
+    if (len(counts) != config["num_fidelities"]
+            or not all(isinstance(c, int) and c >= 1 for c in counts)):
+        raise ValueError(f"{config.get('name', 'the configuration')}: {list(counts)} initial "
+                         f"points per fidelity, wanted {config['num_fidelities']} counts of 1 or more")
+    return list(counts)
+
+
 def design(config: dict, seed: int, device) -> Data:
-    """The initial design of `seed`: n_low + n_high uniform points in
-    [0, 1]^d (numpy default_rng(seed)) in the configuration's dtype, low
-    fidelity first."""
-    n_low, n_high = config["n_low"], config["n_high"]
-    x = np.random.default_rng(seed).uniform(size=(n_low + n_high, config["d"]))
+    """The initial design of `seed`: sum(fidelity_counts) uniform points in
+    [0, 1]^d drawn in one call (numpy default_rng(seed)) in the
+    configuration's dtype, the fidelities in blocks, lowest first."""
+    counts = fidelity_counts(config)
+    x = np.random.default_rng(seed).uniform(size=(sum(counts), config["d"]))
     x = x.astype(config["dtype"]).astype(np.float64)
-    fid = np.concatenate([np.zeros(n_low), np.ones(n_high)]).astype(int)
+    fid = np.repeat(np.arange(len(counts)), counts)
     names, is_con, ys, thr = [], [], [], []
     for bb in make(config, device):
         y = np.empty(x.shape[0])

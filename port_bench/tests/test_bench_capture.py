@@ -6,7 +6,7 @@ reach a traced run's line."""
 import json
 
 from port_bench import run as R
-from port_bench.tests._small import SEED, SMALL
+from port_bench.tests._small import SEED, for_workload
 
 SHAPES = dict(B=4, F=2, m=128, d=2, P=50, dtype="float64")
 
@@ -39,7 +39,8 @@ def test_traced_cond_run_reports_its_capture(tmp_path, monkeypatch):
     monkeypatch.setattr(trace, "traced", untraced)
     bench = tmp_path / "BENCHMARK.json"
     bench.write_text((R.ROOT / "BENCHMARK.json").read_text())
-    res = R.run("b128_f64.cond", SEED, 0.3, 1, device="cpu", overrides=SMALL, bench_file=bench)
+    res = R.run("b128_f64.cond", SEED, 0.3, 1, device="cpu",
+                overrides=for_workload("b128_f64.cond"), bench_file=bench)
     assert res["metrics"]["capture_s.cond"] == {"value": 0.0, "unit": "s"}
     assert "capture_s.train" not in res["metrics"]
     json.dumps(res)

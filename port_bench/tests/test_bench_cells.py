@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from port_bench import run as R
-from port_bench.tests._small import SEED, SMALL
+from port_bench.tests._small import SEED, for_workload, small
 
 BENCH = json.loads((R.ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -32,7 +32,8 @@ def one_thread():
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_rehearsal_and_last_line(workload, bench_file):
-    res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=SMALL, bench_file=bench_file)
+    res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=for_workload(workload),
+                bench_file=bench_file)
     assert list(res)[-1] == "checked"
     assert {"correct", "attempted", "failed", "metrics", "device"} <= set(res)
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] > 0
@@ -48,7 +49,7 @@ def test_cell_rehearsal_and_last_line(workload, bench_file):
 def test_seed_gives_the_same_inputs():
     from port_bench import problems
     cfg = json.loads((R.ROOT / "port_bench/configs/b128_f64.json").read_text())
-    cfg.update(SMALL["config"])
+    cfg.update(small(cfg)["config"])
     a, b = problems.design(cfg, SEED, "cpu"), problems.design(cfg, SEED, "cpu")
     assert (a.x == b.x).all() and all((u == v).all() for u, v in zip(a.ys, b.ys))
 
@@ -58,7 +59,8 @@ def test_seed_gives_the_same_inputs():
 def test_fault_turns_correct_false(workload, fault, bench_file):
     from port_bench import faults
     with faults.FAULTS[fault]():
-        res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=SMALL, bench_file=bench_file)
+        res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=for_workload(workload),
+                bench_file=bench_file)
     assert res["correct"] is False
 
 
@@ -68,7 +70,8 @@ def test_late_fault_shows_only_in_the_tail(workload, bench_file):
     of theirs and fails the tail's."""
     from port_bench import faults
     with faults.late_frozen():
-        res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=SMALL, bench_file=bench_file)
+        res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=for_workload(workload),
+                bench_file=bench_file)
     checked = res["checked"]
     assert all(c["value"] <= c["limit"] for n, c in checked.items() if not n.endswith("_tail"))
     assert checked["change_tail"]["value"] > checked["change_tail"]["limit"]
@@ -84,8 +87,8 @@ def test_traced_run_on_the_cpu_reads_its_tail(bench_file, monkeypatch):
         return [("elementwise", 0.0, 1e-3), ("chol_kernel", 1e-3, 2e-3)], [], 0.01
 
     monkeypatch.setattr(trace, "traced", untraced)
-    res = R.run("b128_f64.train", SEED, 0.3, 1, device="cpu", overrides=SMALL,
-                bench_file=bench_file)
+    res = R.run("b128_f64.train", SEED, 0.3, 1, device="cpu",
+                overrides=for_workload("b128_f64.train"), bench_file=bench_file)
     assert res["correct"] is True and "change_tail" in res["checked"]
     assert "mfu.train" in res["metrics"] and "train_steps_per_s" not in res["metrics"]
 
@@ -95,5 +98,6 @@ def test_flat_adam_state_reads_as_per_leaf(workload, bench_file, monkeypatch):
     """Adam's state kept as one flat tensor (MOBOCMF_FLAT_ADAM=1) is read
     leaf by leaf alike: the cell still comes out correct."""
     monkeypatch.setenv("MOBOCMF_FLAT_ADAM", "1")
-    res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=SMALL, bench_file=bench_file)
+    res = R.run(workload, SEED, 0.3, 0, device="cpu", overrides=for_workload(workload),
+                bench_file=bench_file)
     assert res["correct"] is True

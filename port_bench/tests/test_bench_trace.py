@@ -24,3 +24,16 @@ def test_readers_silent_without_their_kernels():
     assert R.reader("mfu.cond")(ctx) is None
     assert 0 < R.reader("mfu.train")(ctx) < 100
     assert R.reader("idle.train")(ctx) == 99.0
+
+
+def test_work_is_what_lies_between_the_rounds_sentinels():
+    """Device events on a clock 0.25 s behind the host's, with the previous
+    round's last kernel recorded too: the work is what lies between the
+    round's two sentinels, moved onto the host span's start."""
+    dev = [("spin_kernel", -1.0, -0.99), ("old", -0.98, -0.97),
+           ("spin_kernel", 0.05, 0.06), ("a", 0.07, 0.08), ("b", 0.09, 0.1),
+           ("spin_kernel", 0.2, 0.21)]
+    out = trace.work(dev, 0.3)
+    assert [n for n, _, _ in out] == ["a", "b"]
+    assert [(round(s, 9), round(e, 9)) for _, s, e in out] == [(0.31, 0.32), (0.33, 0.34)]
+    assert trace.work(dev[-4:-1], 0.3) == trace.work([e for e in dev if e[0] != "spin_kernel"], 0.3) == []

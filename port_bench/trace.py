@@ -8,6 +8,15 @@ The guard here: the slice is run in two sessions of identical work (the
 same shapes and steps), and the
 kernel counts by name must agree between them; else both are run again,
 up to TRIES times, after which the trace is refused (RuntimeError).
+
+The work's device events are those between a sentinel launched before it
+and one launched after it, not those inside its host span: in a trace the
+device's clock can stand apart from the host's by milliseconds to a few
+hundred of them (m = 2048, a 2.8 s slice), which moved the previous
+round's last kernels into the span, or this round's first ones out of it.
+They are moved onto the host's clock by setting the first sentinel's end
+at the span's start. Each round waits GAP seconds before its sentinel, so
+the profiler has begun to record when the work starts.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Callable, List, Tuple
 import torch
 
 TRIES = 5
+GAP = 0.3  # seconds before each round's first sentinel
 SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel, never counted
 WINDOW = "bench.window"  # the host span of the traced work, ending in a synchronize
 
@@ -28,19 +38,21 @@ Event = Tuple[str, float, float]  # name, start s, end s
 
 def _session(fn: Callable[[], None], device) -> Tuple[List[Event], List[Event], float]:
     """One session: a thrown-away round, then the kept round. Returns the
-    kept round's device events inside its window, the harness's host spans
-    ("bench.*") and the window's length: the host span from the work's
-    start to the synchronize after it, on the trace's own clock."""
+    kept round's work (`work`), the harness's host spans ("bench.*") and
+    the window's length: the host span from the work's start to the
+    synchronize after it, on the trace's own clock."""
     schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
         for _ in range(2):
-            time.sleep(1e-3)
+            time.sleep(GAP)
             torch.cuda._sleep(10000)
             torch.cuda.synchronize(device)
             with torch.profiler.record_function(WINDOW):
                 fn()
                 torch.cuda.synchronize(device)
+            torch.cuda._sleep(10000)
+            torch.cuda.synchronize(device)
             time.sleep(1e-3)
             prof.step()
     dev, host = [], []
@@ -48,16 +60,28 @@ def _session(fn: Callable[[], None], device) -> Tuple[List[Event], List[Event], 
         r = evt.time_range
         item = (evt.name, r.start * 1e-6, r.end * 1e-6)
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            # kernels and copies; not the device-side copies of the host's
-            # annotations (record_function spans, profiler steps)
-            if not (SENTINEL in evt.name or evt.name.startswith(("bench.", "ProfilerStep"))
+            # kernels, copies and sentinels; not the device-side copies of
+            # the host's annotations (record_function spans, profiler steps)
+            if not (evt.name.startswith(("bench.", "ProfilerStep"))
                     or getattr(evt, "is_user_annotation", False)):
                 dev.append(item)
         elif evt.name.startswith("bench."):
             host.append(item)
     _, ws, we = next(h for h in host if h[0] == WINDOW)
-    inside = [(n, max(s, ws), min(e, we)) for n, s, e in dev if e > ws and s < we]
-    return inside, host, we - ws
+    return work(dev, ws), host, we - ws
+
+
+def work(dev: List[Event], start: float) -> List[Event]:
+    """The device events between the last two sentinels, the round's, moved
+    by the first one's end onto `start` (the host span's); none where a
+    sentinel is missing."""
+    spins = sorted((s, e) for n, s, e in dev if SENTINEL in n)
+    if len(spins) < 2:
+        return []
+    (_, opened), (closed, _) = spins[-2:]
+    shift = start - opened
+    return [(n, s + shift, e + shift) for n, s, e in dev
+            if SENTINEL not in n and s >= opened and e <= closed]
 
 
 def traced(fn: Callable[[], None], device) -> Tuple[List[Event], List[Event], float]:
