@@ -12,10 +12,11 @@ Default epochs are reduced (1000 / 2000, 2000 conditioned steps, a
 15-iteration search from 64 raw samples); --full-epochs keeps that search
 with the reference schedule (5000 / 15000 / 15000); --fast is 10 / 20
 epochs for plumbing checks. Runs `run_bo_loop` on `--device` (cuda unless
-named): float32 on the card, float64 on the CPU.
+named) at `--dtype` (float32 on the card and float64 on the CPU unless
+named; float64 is the reference MOBOCMF's precision).
 
     python -m mobocmf_tpu_torch.examples.example_dtlz2_2048 [--iters 1] [--n-init N] [--fast]
-        [--full-epochs] [--log-dir DIR] [--device cpu] ...
+        [--full-epochs] [--log-dir DIR] [--device cpu] [--dtype float64] ...
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def mf_objective(i: int):
     return [lambda xs, level=level: distort(xs, level) for level in range(3)]
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--n-init", type=int, default=2040)
@@ -61,9 +62,36 @@ def main(argv=None):
                         "functions (6-tuple hypervolumes.txt)")
     parser.add_argument("--device", default=None,
                         help="torch device of the models (default: cuda)")
-    args = parser.parse_args(argv)
+    parser.add_argument("--dtype", default=None, choices=("float32", "float64"),
+                        help="the models' precision (default: float32 on the card, "
+                        "float64 on the CPU)")
+    return parser.parse_args(argv)
 
-    from mobocmf_tpu_torch.bo.loop import Blackbox, BOConfig, run_bo_loop
+
+def make_config(args: argparse.Namespace, device: torch.device):
+    """The BOConfig that `args` ask for on `device`."""
+    from mobocmf_tpu_torch.bo.loop import BOConfig
+
+    dtype = args.dtype or ("float32" if device.type == "cuda" else "float64")
+    # full batch (batch_size None): the m = 2048 factor is paid once per
+    # step either way, so minibatches would only multiply factorizations
+    common = dict(num_fidelities=3, num_bo_iterations=args.iters, seed=SEED,
+                  log_dir=args.log_dir, track_recommendation=args.track_recommendation,
+                  whitened=args.whitened, whitened_init=args.whitened_init, device=device,
+                  dtype=getattr(torch, dtype))
+    if args.fast:
+        return BOConfig(num_epochs_1=10, num_epochs_2=20, opt_grid_size=50,
+                        pareto_set_size=10, **common)
+    if args.full_epochs:
+        return BOConfig(acq_maxiter=15, acq_raw_samples=64, **common)
+    return BOConfig(num_epochs_1=1000, num_epochs_2=2000, acq_maxiter=15,
+                    acq_raw_samples=64, **common)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from mobocmf_tpu_torch.bo.loop import Blackbox, run_bo_loop
     from mobocmf_tpu_torch.core.device import resolve_device
     from mobocmf_tpu_torch.util.util import reset_random_state
 
@@ -75,21 +103,7 @@ def main(argv=None):
     n0, n1 = n // 2, n // 4
     x_init = np.random.default_rng(SEED).uniform(size=(n, D))
     fid_init = np.concatenate([np.zeros(n0), np.ones(n1), np.full(n - n0 - n1, 2)]).astype(int)
-
-    # full batch (batch_size None): the m = 2048 factor is paid once per
-    # step either way, so minibatches would only multiply factorizations
-    common = dict(num_fidelities=3, num_bo_iterations=args.iters, seed=SEED,
-                  log_dir=args.log_dir, track_recommendation=args.track_recommendation,
-                  whitened=args.whitened, whitened_init=args.whitened_init, device=device,
-                  dtype=torch.float32 if device.type == "cuda" else torch.float64)
-    if args.fast:
-        config = BOConfig(num_epochs_1=10, num_epochs_2=20, opt_grid_size=50,
-                          pareto_set_size=10, **common)
-    elif args.full_epochs:
-        config = BOConfig(acq_maxiter=15, acq_raw_samples=64, **common)
-    else:
-        config = BOConfig(num_epochs_1=1000, num_epochs_2=2000, acq_maxiter=15,
-                          acq_raw_samples=64, **common)
+    config = make_config(args, device)
     state = run_bo_loop(blackboxes, x_init, fid_init, config)
     print(f"final: {state.x.shape[0]} points, observed HV trajectory "
           f"{[round(h, 4) for h in state.hypervolumes]}")

@@ -34,7 +34,9 @@ to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
 launches of every replay to `launches`, and likewise the collectives of
 every replay (parallel/sharding.py::captured) to `sharding.calls`, and
 the layer states built through the explicit inverse of every replay
-(linalg/ops.py::inv_captured) to `ops.inv_launches`. (K2 runs only
+(linalg/ops.py::inv_captured) to `ops.inv_launches` and their GEMMs'
+operations (`ops.inv_gemm_captured`) to `ops.inv_gemm_flops`; each capture
+sets `inv_gemm_flops_per_step` to the latter per replay. (K2 runs only
 without gradients, never inside a captured step.) `close()`
 frees the graph and its memory pool at the end of the phase.
 
@@ -69,6 +71,11 @@ WARMUP = 2
 # counter beside linalg/chol.py::launches: a reader that holds no Steps
 # (the benchmark's capture_s.* over a cell's one phase) reads it here
 setup_seconds = 0.0
+# the inverse route's GEMM operations (linalg/ops.py::inv_gemm_flops) per
+# replay of the last graph captured in this process, set at each capture:
+# the benchmark's inv_gemm_roofline.* reads it here, as capture_s.* reads
+# setup_seconds (Python arithmetic on shapes at capture; a replay adds none)
+inv_gemm_flops_per_step = 0
 
 
 def adam(leaves: Iterable[torch.Tensor], lr: float,
@@ -218,7 +225,8 @@ class Steps:
     replayed chunk's), `pool_bytes` the device memory the capture left
     allocated to the graph's pool, `replays` the graph's replays, `steps`
     every step run, `inv_states` the layer states its steps built through
-    the explicit inverse (linalg/ops.py::safe_cholesky_inv). Each run is a
+    the explicit inverse (linalg/ops.py::safe_cholesky_inv) and
+    `inv_gemm_flops` the operations of that route's GEMMs. Each run is a
     `graphs.run` span (util/profiling.py)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
@@ -236,19 +244,22 @@ class Steps:
         self.replays = 0
         self.steps = 0
         self.inv_states = 0
+        self.inv_gemm_flops = 0
         self._warm = 0
         self._k1_per_replay = 0
         self._collectives_per_replay = 0
         self._inv_per_replay = 0
+        self._inv_gemm_per_replay = 0
 
     def run(self, n: int) -> None:
         if n <= 0:
             return
         self.steps += n
-        inv0 = ops.inv_launches
+        inv0, gemm0 = ops.inv_launches, ops.inv_gemm_flops
         with span("graphs.run"):
             self._dispatch(n)
         self.inv_states += ops.inv_launches - inv0
+        self.inv_gemm_flops += ops.inv_gemm_flops - gemm0
 
     def _dispatch(self, n: int) -> None:
         if self.device.type != "cuda" or not self.capture:
@@ -272,6 +283,7 @@ class Steps:
         chol.launches += self._k1_per_replay * (n - done)
         sharding.calls += self._collectives_per_replay * (n - done)
         ops.inv_launches += self._inv_per_replay * (n - done)
+        ops.inv_gemm_flops += self._inv_gemm_per_replay * (n - done)
 
     def _warm_up(self, n: int) -> None:
         global setup_seconds
@@ -291,10 +303,10 @@ class Steps:
         setup_seconds += seconds
 
     def _capture(self) -> None:
-        global setup_seconds
+        global setup_seconds, inv_gemm_flops_per_step
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        before = (chol.captured, sharding.captured, ops.inv_captured)
+        before = (chol.captured, sharding.captured, ops.inv_captured, ops.inv_gemm_captured)
         graph = torch.cuda.CUDAGraph()
         # the step's first backward allocates its gradients from the graph's
         # pool (PyTorch's whole-network capture)
@@ -310,6 +322,8 @@ class Steps:
         self._k1_per_replay = chol.captured - before[0]
         self._collectives_per_replay = sharding.captured - before[1]
         self._inv_per_replay = ops.inv_captured - before[2]
+        self._inv_gemm_per_replay = ops.inv_gemm_captured - before[3]
+        inv_gemm_flops_per_step = self._inv_gemm_per_replay
         self.graph = graph
 
     def close(self) -> None:

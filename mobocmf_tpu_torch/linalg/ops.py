@@ -16,7 +16,12 @@ so such a caller runs one triangular solve a factor, backward included.
 Counters: `inv_launches` counts `safe_cholesky_inv` calls that ran; one
 made while the stream is being captured into a CUDA graph adds to
 `inv_captured` instead, and fit/graphs.py adds the calls of every replay
-to `inv_launches` (linalg/chol.py's convention).
+to `inv_launches` (linalg/chol.py's convention). `inv_gemm_flops` counts
+the operations of the GEMMs the inverse route runs (2 rows inner cols
+for each matrix of a batched product, from the operands' shapes at the
+call): `_SolveByInverse`'s product, its refinement and its backward,
+L^{-1}'s own adjoint and `chol_pullback` given the inverse. A GEMM recorded
+while capturing adds to `inv_gemm_captured`, likewise added per replay.
 
 Convention: JAX's solve_triangular(l.T, b, lower=False) is
 torch.linalg.solve_triangular(l.mT, b, upper=True) here.
@@ -24,6 +29,7 @@ torch.linalg.solve_triangular(l.mT, b, upper=True) here.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -34,12 +40,30 @@ from mobocmf_tpu_torch.linalg.chol import cholesky as k1_cholesky
 # recorded into CUDA graphs being captured (run at replay)
 inv_launches = 0
 inv_captured = 0
+# operations of the inverse route's GEMMs that ran, and of those recorded
+# into CUDA graphs being captured
+inv_gemm_flops = 0
+inv_gemm_captured = 0
 
 
 def reset_counts() -> None:
-    global inv_launches, inv_captured
+    global inv_launches, inv_captured, inv_gemm_flops, inv_gemm_captured
     inv_launches = 0
     inv_captured = 0
+    inv_gemm_flops = 0
+    inv_gemm_captured = 0
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, its operations added to the inverse route's GEMM counter."""
+    global inv_gemm_flops, inv_gemm_captured
+    batch = math.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    flops = 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
+    if a.is_cuda and torch.cuda.is_current_stream_capturing():
+        inv_gemm_captured += flops
+    else:
+        inv_gemm_flops += flops
+    return a @ b
 
 
 def add_jitter(k: torch.Tensor, jitter: float) -> torch.Tensor:
@@ -51,14 +75,15 @@ def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor,
     """VJP of K -> chol(K) evaluated at a FINITE factor L:
     K_bar = 0.5 (C + C^T), C = L^{-T} phi(L^T L_bar) L^{-1},
     phi = tril with halved diagonal. Given l_inv = L^{-1}, C is two GEMMs
-    in place of two triangular solves."""
-    p = l.mT @ l_bar
+    in place of two triangular solves (and all three products count as the
+    inverse route's)."""
+    p = l.mT @ l_bar if l_inv is None else _gemm(l.mT, l_bar)
     phi = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
     if l_inv is None:
         x1 = torch.linalg.solve_triangular(l.mT, phi, upper=True)
         c = torch.linalg.solve_triangular(l.mT, x1.mT, upper=True).mT
     else:
-        c = l_inv.mT @ phi @ l_inv
+        c = _gemm(_gemm(l_inv.mT, phi), l_inv)
     return 0.5 * (c + c.mT)
 
 
@@ -107,7 +132,7 @@ class _SafeCholeskyInv(torch.autograd.Function):
         if l_bar is None:
             l_bar = torch.zeros_like(l)
         if l_inv_bar is not None:
-            l_bar = l_bar - torch.tril(l_inv.mT @ l_inv_bar @ l_inv.mT)
+            l_bar = l_bar - torch.tril(_gemm(_gemm(l_inv.mT, l_inv_bar), l_inv.mT))
         return chol_pullback(l, l_bar, l_inv), None, None
 
 
@@ -127,8 +152,8 @@ class _SolveByInverse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, l, l_inv, b, trans):
         x, a = (l_inv.mT, l.mT) if trans else (l_inv, l)
-        w = x @ b
-        w = w + x @ (b - a @ w)
+        w = _gemm(x, b)
+        w = w + _gemm(x, b - _gemm(a, w))
         ctx.save_for_backward(l_inv, w)
         ctx.trans = trans
         return w
@@ -136,10 +161,10 @@ class _SolveByInverse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, w_bar):
         l_inv, w = ctx.saved_tensors
-        b_bar = (l_inv if ctx.trans else l_inv.mT) @ w_bar
+        b_bar = _gemm(l_inv if ctx.trans else l_inv.mT, w_bar)
         l_bar = None
         if ctx.needs_input_grad[0]:
-            l_bar = -torch.tril(w @ b_bar.mT if ctx.trans else b_bar @ w.mT)
+            l_bar = -torch.tril(_gemm(w, b_bar.mT) if ctx.trans else _gemm(b_bar, w.mT))
         return l_bar, None, b_bar if ctx.needs_input_grad[2] else None, None
 
 
@@ -214,8 +239,8 @@ def tri_solve_lower(l: torch.Tensor, b: torch.Tensor, l_inv: Optional[torch.Tens
                     trans: bool = False) -> torch.Tensor:
     """L^{-1} b, or L^{-T} b with `trans`: a triangular solve, or given
     l_inv = L^{-1} GEMMs: one where nothing differentiates l (the
-    acquisition's states), else `_SolveByInverse`'s refined product and
-    its GEMM backward."""
+    acquisition's states, outside `inv_gemm_flops`), else
+    `_SolveByInverse`'s refined product and its GEMM backward."""
     if l_inv is None:
         return torch.linalg.solve_triangular(l.mT if trans else l, b, upper=trans)
     if torch.is_grad_enabled() and l.requires_grad:

@@ -547,12 +547,12 @@ def _assert_rel(got, want, bound=1e-8):
         assert float((a - b).abs().max()) / scale < bound, (a, b)
 
 
-def _predictive(params, model, dev):
+def _predictive(params, model, dev, d=2):
     """The trained models' acquisition predictive (plain route) at 9 points,
     on the CPU. Raw parameters are not compared: Adam moves some entries
     from ~0, where it scales the devices' ~1e-13 gradient differences by
     lr / eps (3e5)."""
-    xq = torch.as_tensor(np.random.default_rng(9).uniform(size=(9, 2)), device=dev)
+    xq = torch.as_tensor(np.random.default_rng(9).uniform(size=(9, d)), device=dev)
     return [t.cpu() for t in M.predict_for_acquisition_all(params, model.consts, model.config, xq)]
 
 
@@ -585,6 +585,47 @@ def test_captured_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_siz
             assert stats["replays"] == epochs - 2 and stats["chunks"] == 3
             assert stats["capture_seconds"] > 0
         runs.append([logs.loss, logs.kl] + _predictive(params, model, dev))
+    _assert_rel(runs[1], runs[0])
+
+
+def test_captured_three_fidelity_chunks_match_eager_cpu_f64(cuda_device, monkeypatch):
+    """Three fidelities (F = 3, d = 6, m = 48, DTLZ2-like targets): a full-batch
+    phase in chunks of 2 epochs, replayed from a CUDA graph on the card,
+    against the same phase run eagerly on the CPU from the same draws. Both
+    build F layer states a step through the explicit inverse, and the
+    inverse route's GEMM operations per step (counted at the capture on the
+    card, from the eager steps on the CPU) agree exactly."""
+    from mobocmf_tpu_torch.fit import graphs
+
+    monkeypatch.setattr(trainer, "chunk_size_for", lambda m: 2)
+    n, d, nf, epochs = 48, 6, 3, 5
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(n, d))
+    fid = np.repeat(np.arange(nf), [24, 12, 12])
+    ys = np.stack([np.cos(0.5 * np.pi * x[:, 0]) + np.sum((x[:, 2:] - 0.5) ** 2, axis=1)
+                   + 0.1 * (nf - 1 - fid) * np.mean(np.sin(6 * np.pi * x), axis=1),
+                   np.sin(0.5 * np.pi * x[:, 0]) * (1 + np.sum((x[:, 2:] - 0.5) ** 2, axis=1))])
+    eps = torch.randn((epochs, 2, nf - 1, n), generator=torch.Generator().manual_seed(1),
+                      dtype=torch.float64)
+    runs, per_step = [], []
+    for dev in ("cpu", cuda_device):
+        models = [M.init_mfdgp(x, y, fid, nf, generator=torch.Generator().manual_seed(i),
+                               device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
+        model = trainer.stack_models(models)
+        ops.reset_counts()
+        stats = {}
+        params, logs = trainer.train_phase_stacked_chunked(
+            model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
+            torch.as_tensor(fid, device=dev), epochs, 0.003, "all_free", n,
+            eps=eps.to(dev), stats=stats,
+        )
+        assert stats["inv_states"] == ops.inv_launches == nf * epochs
+        if dev != "cpu":
+            assert stats["replays"] == epochs - 2 and stats["chunks"] == 3
+            assert graphs.inv_gemm_flops_per_step == stats["inv_gemm_flops_per_step"]
+        per_step.append(stats["inv_gemm_flops_per_step"])
+        runs.append([logs.loss, logs.kl] + _predictive(params, model, dev, d))
+    assert per_step[0] > 0 and per_step[1] == per_step[0]
     _assert_rel(runs[1], runs[0])
 
 

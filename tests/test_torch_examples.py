@@ -79,3 +79,18 @@ def test_pipeline_example_runs_on_the_cpu(name):
     maxima = [float(m) for s in text if s.startswith(("acq ", "coupled "))
               for m in re.findall(r"max=(\S+?);?(?:\s|$)", s)]
     assert len(maxima) >= 2 and all(np.isfinite(m) and m >= 0.0 for m in maxima), maxima
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], "float64"), (["--dtype", "float64"], "float64"), (["--dtype", "float32"], "float32"),
+    (["--dtype", "float64", "--fast"], "float64"),
+])
+def test_dtlz2_dtype_reaches_the_config(argv, want):
+    """example_dtlz2_2048's --dtype is the BOConfig's dtype (parsed, not
+    run); without it the CPU runs float64."""
+    import torch
+
+    from mobocmf_tpu_torch.examples import example_dtlz2_2048 as ex
+
+    config = ex.make_config(ex.parse_args(argv + ["--device", "cpu"]), torch.device("cpu"))
+    assert config.dtype == getattr(torch, want) and config.num_fidelities == 3

@@ -228,3 +228,29 @@ def test_safe_cholesky_inv_matches_the_solve_route(n):
         got, = torch.autograd.grad(loss, k, retain_graph=True)
         want, = torch.autograd.grad(loss_ref, k, retain_graph=True)
         assert rel(got, want) < 1e-11
+
+
+@pytest.mark.parametrize("route", ["inverse", "inverse-adjoint", "solve-f64", "solve-f32"])
+def test_inv_gemm_flops_closed_form(route):
+    """ops.inv_gemm_flops after one factor and one product with L^{-1} (B =
+    2, m = 16, 5 columns) and their backward: per matrix 3 x 2 m^2 n for
+    the refined product, 2 x 2 m^2 n for its backward, 3 x 2 m^3 for the
+    pullback through the inverse, and 2 x 2 m^3 more for an adjoint of
+    L^{-1} itself. The solve route, at either precision, adds nothing."""
+    bsz, m, n = 2, 16, 5
+    dtype = torch.float32 if route == "solve-f32" else torch.float64
+    k = torch.as_tensor(_spd(m, seed=3, batch=bsz), dtype=dtype).requires_grad_(True)
+    b = torch.as_tensor(np.random.default_rng(4).normal(size=(bsz, m, n)), dtype=dtype)
+    ops.reset_counts()
+    if route.startswith("inverse"):
+        l, _, l_inv = ops.safe_cholesky_inv(k, 2e-6)
+        w = ops.tri_solve_lower(l, b, l_inv)
+        assert ops.inv_gemm_flops == bsz * 3 * 2 * m * m * n
+        loss = torch.sum(w ** 2) + (torch.sum(l_inv) if route == "inverse-adjoint" else 0.0)
+        want = bsz * (10 * m * m * n + 6 * m ** 3 + (4 * m ** 3 if route == "inverse-adjoint" else 0))
+    else:
+        l = ops.safe_cholesky(k, 2e-6)
+        loss = torch.sum(ops.tri_solve_lower(l, b) ** 2)
+        want = 0
+    loss.backward()
+    assert ops.inv_gemm_flops == want and ops.inv_gemm_captured == 0

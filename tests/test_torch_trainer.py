@@ -193,7 +193,8 @@ def test_fitter_end_to_end_with_padding():
 def test_phase_counts_its_layer_states_through_the_inverse(dtype, batch_size, per_epoch):
     """`steps_stats`' inv_states: F layer states an update through the
     explicit inverse at float64 (3 minibatches an epoch at 5 of 14 rows),
-    none at float32; linalg/ops.py's counter moves by as much."""
+    none at float32; linalg/ops.py's counter moves by as much. The route's
+    GEMM operations per step likewise: the counter over the 3 epochs."""
     from mobocmf_tpu_torch.linalg import ops
 
     x, ys, fid = _problem()
@@ -206,6 +207,8 @@ def test_phase_counts_its_layer_states_through_the_inverse(dtype, batch_size, pe
         torch.as_tensor(ys, dtype=dtype), torch.as_tensor(fid), 3, 1e-3, "all_free", batch_size,
         generator=torch.Generator().manual_seed(1), stats=stats)
     assert stats["inv_states"] == ops.inv_launches == 3 * per_epoch
+    assert stats["inv_gemm_flops_per_step"] == ops.inv_gemm_flops / 3
+    assert (stats["inv_gemm_flops_per_step"] > 0) == (per_epoch > 0)
 
 
 def test_fitter_rejects_mismatched_inputs():
