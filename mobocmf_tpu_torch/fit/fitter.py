@@ -102,8 +102,8 @@ class BlackBoxMFDGPFitter:
         # loss, K1 launches and ladder escalations during the phase, and its
         # capture record (trainer.steps_stats: warm-up and capture seconds,
         # the graph pool's bytes, replays, layer states built through the
-        # explicit inverse and that route's GEMM operations per step,
-        # captured and why)
+        # explicit inverse, that route's GEMM operations per step and those
+        # its structured products skipped, captured and why)
         self.phase_stats: List[dict] = []
         # seconds of initialize_mfdgp's warm-start fetch, host math and ship
         # to the device, summed over blackboxes (models/mfdgp.py::init_mfdgp)
@@ -199,6 +199,7 @@ class BlackBoxMFDGPFitter:
             pool_bytes=stats["pool_bytes"], replays=stats["replays"],
             inv_states=stats["inv_states"],
             inv_gemm_flops_per_step=stats["inv_gemm_flops_per_step"],
+            inv_gemm_skipped_per_step=stats["inv_gemm_skipped_per_step"],
             captured=stats["captured"], capture_reason=stats["capture_reason"],
         )
 

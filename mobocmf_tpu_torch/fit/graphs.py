@@ -35,8 +35,10 @@ launches of every replay to `launches`, and likewise the collectives of
 every replay (parallel/sharding.py::captured) to `sharding.calls`, and
 the layer states built through the explicit inverse of every replay
 (linalg/ops.py::inv_captured) to `ops.inv_launches` and their GEMMs'
-operations (`ops.inv_gemm_captured`) to `ops.inv_gemm_flops`; each capture
-sets `inv_gemm_flops_per_step` to the latter per replay. (K2 runs only
+operations (`ops.inv_gemm_captured`) to `ops.inv_gemm_flops`, and the
+operations their structured products skipped (`ops.inv_gemm_skipped_captured`)
+to `ops.inv_gemm_skipped`; each capture sets `inv_gemm_flops_per_step` to
+the operations per replay. (K2 runs only
 without gradients, never inside a captured step.) `close()`
 frees the graph and its memory pool at the end of the phase.
 
@@ -226,7 +228,8 @@ class Steps:
     allocated to the graph's pool, `replays` the graph's replays, `steps`
     every step run, `inv_states` the layer states its steps built through
     the explicit inverse (linalg/ops.py::safe_cholesky_inv) and
-    `inv_gemm_flops` the operations of that route's GEMMs. Each run is a
+    `inv_gemm_flops` the operations of that route's GEMMs
+    (`inv_gemm_skipped` those its structured products left out). Each run is a
     `graphs.run` span (util/profiling.py)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
@@ -245,21 +248,24 @@ class Steps:
         self.steps = 0
         self.inv_states = 0
         self.inv_gemm_flops = 0
+        self.inv_gemm_skipped = 0
         self._warm = 0
         self._k1_per_replay = 0
         self._collectives_per_replay = 0
         self._inv_per_replay = 0
         self._inv_gemm_per_replay = 0
+        self._inv_skipped_per_replay = 0
 
     def run(self, n: int) -> None:
         if n <= 0:
             return
         self.steps += n
-        inv0, gemm0 = ops.inv_launches, ops.inv_gemm_flops
+        inv0, gemm0, skipped0 = ops.inv_launches, ops.inv_gemm_flops, ops.inv_gemm_skipped
         with span("graphs.run"):
             self._dispatch(n)
         self.inv_states += ops.inv_launches - inv0
         self.inv_gemm_flops += ops.inv_gemm_flops - gemm0
+        self.inv_gemm_skipped += ops.inv_gemm_skipped - skipped0
 
     def _dispatch(self, n: int) -> None:
         if self.device.type != "cuda" or not self.capture:
@@ -284,6 +290,7 @@ class Steps:
         sharding.calls += self._collectives_per_replay * (n - done)
         ops.inv_launches += self._inv_per_replay * (n - done)
         ops.inv_gemm_flops += self._inv_gemm_per_replay * (n - done)
+        ops.inv_gemm_skipped += self._inv_skipped_per_replay * (n - done)
 
     def _warm_up(self, n: int) -> None:
         global setup_seconds
@@ -306,7 +313,8 @@ class Steps:
         global setup_seconds, inv_gemm_flops_per_step
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        before = (chol.captured, sharding.captured, ops.inv_captured, ops.inv_gemm_captured)
+        before = (chol.captured, sharding.captured, ops.inv_captured, ops.inv_gemm_captured,
+                  ops.inv_gemm_skipped_captured)
         graph = torch.cuda.CUDAGraph()
         # the step's first backward allocates its gradients from the graph's
         # pool (PyTorch's whole-network capture)
@@ -323,6 +331,7 @@ class Steps:
         self._collectives_per_replay = sharding.captured - before[1]
         self._inv_per_replay = ops.inv_captured - before[2]
         self._inv_gemm_per_replay = ops.inv_gemm_captured - before[3]
+        self._inv_skipped_per_replay = ops.inv_gemm_skipped_captured - before[4]
         inv_gemm_flops_per_step = self._inv_gemm_per_replay
         self.graph = graph
 

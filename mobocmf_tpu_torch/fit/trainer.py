@@ -355,13 +355,16 @@ class TrainPhase:
 def steps_stats(steps: graphs.Steps) -> dict:
     """A phase's capture record: the warm-up's and the capture's seconds,
     the graph pool's bytes, replays, steps, the layer states built through
-    the explicit inverse (F a step in float64) and that route's GEMM
-    operations per step (linalg/ops.py::inv_gemm_flops over the steps run),
-    captured and why."""
-    per_step = steps.inv_gemm_flops / steps.steps if steps.steps else 0.0
+    the explicit inverse (F a step in float64), that route's GEMM
+    operations per step (linalg/ops.py::inv_gemm_flops over the steps run)
+    and the dense-equivalent operations its structured products skipped
+    per step (`ops.inv_gemm_skipped`), captured and why."""
+    steps_run = max(steps.steps, 1)
     return dict(warmup_seconds=steps.warmup_seconds, capture_seconds=steps.capture_seconds,
                 pool_bytes=steps.pool_bytes, replays=steps.replays, steps=steps.steps,
-                inv_states=steps.inv_states, inv_gemm_flops_per_step=per_step,
+                inv_states=steps.inv_states,
+                inv_gemm_flops_per_step=steps.inv_gemm_flops / steps_run,
+                inv_gemm_skipped_per_step=steps.inv_gemm_skipped / steps_run,
                 captured=steps.capture,
                 capture_reason=steps.capture_reason)
 

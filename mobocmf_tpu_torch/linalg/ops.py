@@ -23,6 +23,18 @@ call): `_SolveByInverse`'s product, its refinement and its backward,
 L^{-1}'s own adjoint and `chol_pullback` given the inverse. A GEMM recorded
 while capturing adds to `inv_gemm_captured`, likewise added per replay.
 
+Structured products (`_product`): every product the route counts has a
+triangular operand (L, L^{-1}, L_S = tril(chol_raw), phi, and products or
+residuals of lower factors, whose zero triangles are exact zeros) or an
+output of which the caller keeps the lower triangle. From m = 2 GEMM_LEAF
+rows up, such a product splits into 2 x 2 blocks, recursively, skips the
+block products with a zero operand block and the output blocks not kept,
+and issues each remaining block product as one batched GEMM into a view of
+one output; below, it is the one GEMM of before. `inv_gemm_flops` counts
+what was issued, block by block; `inv_gemm_skipped` the dense-equivalent
+operations left out (`inv_gemm_skipped_captured` while capturing, added
+per replay).
+
 Convention: JAX's solve_triangular(l.T, b, lower=False) is
 torch.linalg.solve_triangular(l.mT, b, upper=True) here.
 """
@@ -44,26 +56,121 @@ inv_captured = 0
 # into CUDA graphs being captured
 inv_gemm_flops = 0
 inv_gemm_captured = 0
+# dense-equivalent operations that the structured products left out, and
+# of those recorded into CUDA graphs being captured
+inv_gemm_skipped = 0
+inv_gemm_skipped_captured = 0
+
+# a structured product splits while its half-block has at least this many
+# rows: twice at m = 2048, never at m <= 1023
+GEMM_LEAF = 512
 
 
 def reset_counts() -> None:
     global inv_launches, inv_captured, inv_gemm_flops, inv_gemm_captured
+    global inv_gemm_skipped, inv_gemm_skipped_captured
     inv_launches = 0
     inv_captured = 0
     inv_gemm_flops = 0
     inv_gemm_captured = 0
+    inv_gemm_skipped = 0
+    inv_gemm_skipped_captured = 0
+
+
+def _flops(a: torch.Tensor, b: torch.Tensor) -> int:
+    batch = math.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    return 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
+
+
+def _record(a: torch.Tensor, flops: int, skipped: int = 0) -> None:
+    global inv_gemm_flops, inv_gemm_captured, inv_gemm_skipped, inv_gemm_skipped_captured
+    if a.is_cuda and torch.cuda.is_current_stream_capturing():
+        inv_gemm_captured += flops
+        inv_gemm_skipped_captured += skipped
+    else:
+        inv_gemm_flops += flops
+        inv_gemm_skipped += skipped
 
 
 def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b, its operations added to the inverse route's GEMM counter."""
-    global inv_gemm_flops, inv_gemm_captured
-    batch = math.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
-    flops = 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
-    if a.is_cuda and torch.cuda.is_current_stream_capturing():
-        inv_gemm_captured += flops
-    else:
-        inv_gemm_flops += flops
+    _record(a, _flops(a, b))
     return a @ b
+
+
+def splits(l: torch.Tensor) -> bool:
+    """Whether the structured products on a factor l's rows split into
+    blocks (half of m at least GEMM_LEAF); below, each is one GEMM."""
+    return l.shape[-1] // 2 >= GEMM_LEAF
+
+
+def _split_size(a, b, kind_a: str, kind_b: str, lower_out: bool) -> int:
+    """The size of a product's structured dimensions: the rows of a
+    triangular a or of a lower-only output, else the columns of a
+    triangular b; 0 for a dense product."""
+    if kind_a != "dense" or lower_out:
+        return a.shape[-2]
+    return b.shape[-1] if kind_b != "dense" else 0
+
+
+def _block_kind(kind: str, i: int, j: int) -> Optional[str]:
+    """Block (i, j) of an operand split in two both ways: its own kind on
+    the diagonal, dense or None (zero) off it."""
+    if kind == "dense" or i == j:
+        return kind
+    return "dense" if (i > j) == (kind == "lower") else None
+
+
+def _blocks(out, a, b, kind_a, kind_b, lower_out, leaf, accumulate) -> int:
+    """out = a @ b, or out += a @ b with `accumulate`, by blocks on 3-d
+    views (`_product`); returns the operations issued."""
+    size = _split_size(a, b, kind_a, kind_b, lower_out)
+    if size // 2 < leaf:
+        if accumulate:
+            out.baddbmm_(a, b)
+        else:
+            torch.bmm(a, b, out=out)
+        return 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    halves = [slice(0, size // 2), slice(size // 2, size)]
+    rows = halves if kind_a != "dense" or lower_out else [slice(None)]
+    inner = halves if kind_a != "dense" or kind_b != "dense" else [slice(None)]
+    cols = halves if kind_b != "dense" or lower_out else [slice(None)]
+    issued = 0
+    for i, r in enumerate(rows):
+        for j, c in enumerate(cols):
+            if lower_out and i < j:
+                continue
+            terms = [(s, _block_kind(kind_a, i, k), _block_kind(kind_b, k, j))
+                     for k, s in enumerate(inner)]
+            terms = [t for t in terms if t[1] is not None and t[2] is not None]
+            if not terms and not accumulate:
+                out[:, r, c].zero_()
+            for n, (s, ka, kb) in enumerate(terms):
+                issued += _blocks(out[:, r, c], a[:, r, s], b[:, s, c], ka, kb,
+                                  lower_out and i == j, leaf, accumulate or n > 0)
+    return issued
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, kind_a: str = "dense", kind_b: str = "dense",
+             lower_out: bool = False, leaf: Optional[int] = None) -> torch.Tensor:
+    """a @ b for operands of a known structure: "lower" or "upper" (square,
+    the other triangle exactly zero) or "dense". With `lower_out` only the
+    output's lower triangle is computed, and the caller takes its tril.
+    While the structured dimensions' half is at least `leaf` rows
+    (GEMM_LEAF), a 2 x 2 block split skips the block products with a zero
+    operand and the output blocks not kept, recursing on the diagonal
+    blocks; below that it is `_gemm(a, b)`."""
+    leaf = GEMM_LEAF if leaf is None else leaf
+    if _split_size(a, b, kind_a, kind_b, lower_out) // 2 < leaf:
+        return _gemm(a, b)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    out = torch.empty(batch + (a.shape[-2], b.shape[-1]), dtype=a.dtype, device=a.device)
+    issued = _blocks(out.view((-1,) + out.shape[-2:]),
+                     a.expand(batch + a.shape[-2:]).reshape((-1,) + a.shape[-2:]),
+                     b.expand(batch + b.shape[-2:]).reshape((-1,) + b.shape[-2:]),
+                     kind_a, kind_b, lower_out, leaf, False)
+    _record(a, issued, _flops(a, b) - issued)
+    return out
 
 
 def add_jitter(k: torch.Tensor, jitter: float) -> torch.Tensor:
@@ -75,15 +182,19 @@ def chol_pullback(l: torch.Tensor, l_bar: torch.Tensor,
     """VJP of K -> chol(K) evaluated at a FINITE factor L:
     K_bar = 0.5 (C + C^T), C = L^{-T} phi(L^T L_bar) L^{-1},
     phi = tril with halved diagonal. Given l_inv = L^{-1}, C is two GEMMs
-    in place of two triangular solves (and all three products count as the
-    inverse route's)."""
-    p = l.mT @ l_bar if l_inv is None else _gemm(l.mT, l_bar)
+    in place of two triangular solves (all three products are the inverse
+    route's structured ones: L^T L_bar to its lower triangle, then upper
+    times lower, then dense times lower)."""
+    if l_inv is None:
+        p = l.mT @ l_bar
+    else:
+        p = _product(l.mT, l_bar, "upper", lower_out=True)
     phi = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
     if l_inv is None:
         x1 = torch.linalg.solve_triangular(l.mT, phi, upper=True)
         c = torch.linalg.solve_triangular(l.mT, x1.mT, upper=True).mT
     else:
-        c = _gemm(_gemm(l_inv.mT, phi), l_inv)
+        c = _product(_product(l_inv.mT, phi, "upper", "lower"), l_inv, kind_b="lower")
     return 0.5 * (c + c.mT)
 
 
@@ -132,7 +243,8 @@ class _SafeCholeskyInv(torch.autograd.Function):
         if l_bar is None:
             l_bar = torch.zeros_like(l)
         if l_inv_bar is not None:
-            l_bar = l_bar - torch.tril(_gemm(_gemm(l_inv.mT, l_inv_bar), l_inv.mT))
+            y = _product(l_inv.mT, l_inv_bar, "upper")
+            l_bar = l_bar - torch.tril(_product(y, l_inv.mT, kind_b="upper", lower_out=True))
         return chol_pullback(l, l_bar, l_inv), None, None
 
 
@@ -147,25 +259,35 @@ class _SolveByInverse(torch.autograd.Function):
     times the solve's; one refinement step, W + X (B - L W), brings it to
     the solve's. Unrefined, the float64 steps of an ill-conditioned model
     drift 3-4x further apart under a change of summation order (the 'dp'
-    mesh against one process, tests/test_torch_sharding.py)."""
+    mesh against one process, tests/test_torch_sharding.py).
+
+    Every product is a structured one (`_product`): X and L are triangular,
+    a lower B (`b_lower`) makes W and the residual lower too (without
+    `trans`), and L_bar is a lower-only output."""
 
     @staticmethod
-    def forward(ctx, l, l_inv, b, trans):
+    def forward(ctx, l, l_inv, b, trans, b_lower):
         x, a = (l_inv.mT, l.mT) if trans else (l_inv, l)
-        w = _gemm(x, b)
-        w = w + _gemm(x, b - _gemm(a, w))
+        tri = "upper" if trans else "lower"
+        kind_w = "lower" if b_lower and not trans else "dense"
+        w = _product(x, b, tri, "lower" if b_lower else "dense")
+        w = w + _product(x, b - _product(a, w, tri, kind_w), tri, kind_w)
         ctx.save_for_backward(l_inv, w)
         ctx.trans = trans
+        ctx.w_lower = kind_w == "lower"
         return w
 
     @staticmethod
     def backward(ctx, w_bar):
         l_inv, w = ctx.saved_tensors
-        b_bar = _gemm(l_inv if ctx.trans else l_inv.mT, w_bar)
+        trans = ctx.trans
+        b_bar = _product(l_inv if trans else l_inv.mT, w_bar, "lower" if trans else "upper")
         l_bar = None
         if ctx.needs_input_grad[0]:
-            l_bar = -torch.tril(_gemm(w, b_bar.mT) if ctx.trans else _gemm(b_bar, w.mT))
-        return l_bar, None, b_bar if ctx.needs_input_grad[2] else None, None
+            kind_wt = "upper" if ctx.w_lower else "dense"
+            l_bar = -torch.tril(_product(w, b_bar.mT, lower_out=True) if trans
+                                else _product(b_bar, w.mT, kind_b=kind_wt, lower_out=True))
+        return l_bar, None, b_bar if ctx.needs_input_grad[2] else None, None, None
 
 
 def _diag_scale(k: torch.Tensor) -> torch.Tensor:
@@ -236,15 +358,17 @@ def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def tri_solve_lower(l: torch.Tensor, b: torch.Tensor, l_inv: Optional[torch.Tensor] = None,
-                    trans: bool = False) -> torch.Tensor:
+                    trans: bool = False, b_lower: bool = False) -> torch.Tensor:
     """L^{-1} b, or L^{-T} b with `trans`: a triangular solve, or given
     l_inv = L^{-1} GEMMs: one where nothing differentiates l (the
     acquisition's states, outside `inv_gemm_flops`), else
-    `_SolveByInverse`'s refined product and its GEMM backward."""
+    `_SolveByInverse`'s refined product and its GEMM backward, whose
+    structured products skip the zero triangle of b where `b_lower` says b
+    is lower triangular (the two other routes take b as it is)."""
     if l_inv is None:
         return torch.linalg.solve_triangular(l.mT if trans else l, b, upper=trans)
     if torch.is_grad_enabled() and l.requires_grad:
-        return _SolveByInverse.apply(l, l_inv, b, trans)
+        return _SolveByInverse.apply(l, l_inv, b, trans, b_lower)
     return (l_inv.mT if trans else l_inv) @ b
 
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from mobocmf_tpu_torch.core.config import MIN_VARIANCE
-from mobocmf_tpu_torch.linalg.ops import logdet_from_chol, safe_cholesky, tri_solve_lower
+from mobocmf_tpu_torch.linalg.ops import logdet_from_chol, safe_cholesky, splits, tri_solve_lower
 
 KernelGram = Callable[[Dict, torch.Tensor, torch.Tensor], torch.Tensor]
 KernelDiag = Callable[[Dict, torch.Tensor], torch.Tensor]
@@ -58,10 +58,15 @@ def solve_variational(
     lk_inv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(w_mean, w_ls): L^{-1} m and L^{-1} L_S unwhitened (one multi-RHS
-    solve, or one GEMM given lk_inv = L^{-1}), m_w and L_S whitened."""
+    solve, or one product given lk_inv = L^{-1}; two products where the
+    inverse route's products split, the second told that L_S is lower),
+    m_w and L_S whitened."""
     ls = torch.tril(var.chol_raw)
     if whitened:
         return var.mean, ls
+    if lk_inv is not None and splits(lk):
+        return (tri_solve_lower(lk, var.mean.unsqueeze(-1), lk_inv)[..., 0],
+                tri_solve_lower(lk, ls, lk_inv, b_lower=True))
     rhs = torch.cat([var.mean.unsqueeze(-1), ls], dim=-1)
     sol = tri_solve_lower(lk, rhs, lk_inv)
     return sol[..., 0], sol[..., 1:]

@@ -944,3 +944,57 @@ def test_a_search_that_fails_to_capture_raises(cuda_device):
         lbfgs.lbfgs_lanes(fun, z0, 20)
     torch.cuda.synchronize()
     assert torch.ones(2, device=cuda_device).sum().item() == 2.0
+
+
+def test_split_inverse_route_matches_dense_at_m2048(cuda_device, monkeypatch):
+    """B = 4, m = 2048, float64: the inverse route's structured products,
+    split at the default leaf, against the same route unsplit (one dense
+    GEMM a product): `_SolveByInverse` on a dense and on a lower right-hand
+    side, its backward and chol_pullback through L^{-1} (the gradient to
+    the Gram), to 1e-12 relative. Then a step of the same work captured
+    and replayed counts the GEMM operations issued and skipped a step that
+    the step run eagerly counts."""
+    from mobocmf_tpu_torch.fit import graphs
+
+    bsz, m = 4, 2048
+    g = torch.Generator(device="cpu").manual_seed(5)
+    k = _spd(bsz, m, 6, torch.float64, cuda_device).requires_grad_(True)
+    rhs = torch.randn((bsz, m, 64), generator=g, dtype=torch.float64).to(cuda_device)
+    ls = torch.tril(torch.randn((bsz, m, m), generator=g, dtype=torch.float64)).to(cuda_device)
+    ls.requires_grad_(True)
+
+    def route():
+        l, _, l_inv = ops.safe_cholesky_inv(k, 2e-6)
+        w = ops.tri_solve_lower(l, rhs, l_inv)
+        w_ls = ops.tri_solve_lower(l, ls, l_inv, b_lower=True)
+        loss = torch.sum(w ** 2) + torch.sum(w_ls ** 2) + torch.sum(ops.logdet_from_chol(l))
+        return [w.detach(), w_ls.detach()] + list(torch.autograd.grad(loss, (k, ls)))
+
+    runs = []
+    for leaf in (m, ops.GEMM_LEAF):
+        monkeypatch.setattr(ops, "GEMM_LEAF", leaf)
+        ops.reset_counts()
+        runs.append(route())
+        assert (ops.inv_gemm_skipped > 0) == (leaf < m)
+    for got, want in zip(runs[1], runs[0]):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel < 1e-12, rel
+
+    def step():
+        l, _, l_inv = ops.safe_cholesky_inv(k, 2e-6)
+        torch.sum(ops.tri_solve_lower(l, ls, l_inv, b_lower=True) ** 2).backward()
+
+    per_step = []
+    for capture in (False, True):
+        steps = graphs.Steps(step, cuda_device, leaves=[k, ls], capture=capture)
+        ops.reset_counts()
+        steps.run(3)
+        torch.cuda.synchronize()
+        stats = trainer.steps_stats(steps)
+        steps.close()
+        assert stats["replays"] == (1 if capture else 0)
+        assert stats["inv_gemm_skipped_per_step"] > 0
+        if capture:
+            assert graphs.inv_gemm_flops_per_step == stats["inv_gemm_flops_per_step"]
+        per_step.append((stats["inv_gemm_flops_per_step"], stats["inv_gemm_skipped_per_step"]))
+    assert per_step[0] == per_step[1]

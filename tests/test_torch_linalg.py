@@ -181,24 +181,77 @@ def _rbf_gram(batch, n, seed):
 
 def test_safe_cholesky_inv_gradcheck():
     """gradcheck through L, L^{-1} and logdet_from_chol(L) together, and
-    through the products with L^{-1} and L^{-T} that stand for solves."""
+    through the products with L^{-1} and L^{-T} that stand for solves (a
+    lower right-hand side among them), unsplit and with the structured
+    products split at a leaf of 2."""
     k = torch.as_tensor(_spd(6, seed=11, batch=2)).requires_grad_(True)
-    b = torch.as_tensor(np.random.default_rng(12).normal(size=(2, 6, 3))).requires_grad_(True)
+    rng = np.random.default_rng(12)
+    b = torch.as_tensor(rng.normal(size=(2, 6, 3))).requires_grad_(True)
+    b_low = torch.as_tensor(rng.normal(size=(2, 6, 6))).requires_grad_(True)
 
-    def outputs(kk, bb):
+    def outputs(kk, bb, bl):
         l, _, l_inv = ops.safe_cholesky_inv(kk, 2e-6)
         return (l, l_inv, ops.logdet_from_chol(l), ops.tri_solve_lower(l, bb, l_inv),
-                ops.tri_solve_lower(l, bb, l_inv, trans=True))
+                ops.tri_solve_lower(l, bb, l_inv, trans=True),
+                ops.tri_solve_lower(l, torch.tril(bl), l_inv, b_lower=True))
 
-    assert torch.autograd.gradcheck(outputs, (k, b))
+    for leaf in (ops.GEMM_LEAF, 2):
+        ops.reset_counts()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ops, "GEMM_LEAF", leaf)
+            assert torch.autograd.gradcheck(outputs, (k, b, b_low))
+        assert (ops.inv_gemm_skipped > 0) == (leaf == 2)
 
 
-@pytest.mark.parametrize("n", [16, 64])
-def test_safe_cholesky_inv_matches_the_solve_route(n):
+# the route's structures: (a, b, lower-only output), each product of
+# _SolveByInverse, _SafeCholeskyInv.backward and chol_pullback given L^{-1}
+ROUTE_PRODUCTS = [
+    ("lower", "dense", False), ("lower", "lower", False), ("upper", "dense", False),
+    ("dense", "upper", True), ("dense", "dense", True), ("upper", "dense", True),
+    ("upper", "lower", False), ("dense", "lower", False),
+]
+
+
+@pytest.mark.parametrize("m,p", [(37, 130), (130, 37)])
+@pytest.mark.parametrize("kind_a,kind_b,lower_out", ROUTE_PRODUCTS)
+def test_structured_product_matches_the_dense_product(kind_a, kind_b, lower_out, m, p):
+    """ops._product against the dense product of the same triangles (its
+    tril for a lower-only output), batch (2, 3), to 1e-13 relative: at a
+    leaf of 4 (three levels of 2 x 2 blocks at m = 37, odd halves); the
+    operations issued plus those skipped make the dense product's; at
+    the default leaf it is the one dense GEMM, bitwise, with none skipped."""
+    g = torch.Generator().manual_seed(m + 7 * ROUTE_PRODUCTS.index((kind_a, kind_b, lower_out)))
+
+    def operand(kind, rows, cols):
+        t = torch.randn((2, 3, rows, cols), generator=g, dtype=torch.float64)
+        return {"lower": torch.tril, "upper": torch.triu}.get(kind, lambda x: x)(t)
+
+    inner = m if kind_a != "dense" or kind_b != "dense" else p
+    a = operand(kind_a, m, inner)
+    b = operand(kind_b, inner, m if kind_b != "dense" or lower_out else p)
+    want = a @ b
+    for leaf in (4, None):
+        ops.reset_counts()
+        got = ops._product(a, b, kind_a, kind_b, lower_out, leaf=leaf)
+        assert ops.inv_gemm_flops + ops.inv_gemm_skipped == 2 * 6 * m * inner * b.shape[-1]
+        if leaf is None:
+            assert torch.equal(got, want) and ops.inv_gemm_skipped == 0
+            continue
+        assert ops.inv_gemm_skipped > 0
+        keep = torch.tril if lower_out else (lambda x: x)
+        assert float((keep(got) - keep(want)).abs().max() / keep(want).abs().max()) < 1e-13
+
+
+@pytest.mark.parametrize("n,leaf", [(16, None), (64, None), (16, 4), (64, 8)],
+                         ids=["16", "64", "16-split", "64-split"])
+def test_safe_cholesky_inv_matches_the_solve_route(n, leaf, monkeypatch):
     """Forward and backward of safe_cholesky_inv against _SafeCholesky plus
     solve_triangular(L, I), and the products with L^{-1} and L^{-T} that
-    the layer states take against the solves they replace, to 1e-11
-    relative."""
+    the layer states take (a lower right-hand side among them) against the
+    solves they replace, to 1e-11 relative; unsplit, and with the
+    structured products split two levels deep."""
+    if leaf is not None:
+        monkeypatch.setattr(ops, "GEMM_LEAF", leaf)
     k = _rbf_gram(2, n, n).requires_grad_(True)
     ops.reset_counts()
     l, level, l_inv = ops.safe_cholesky_inv(k, 2e-6)
@@ -210,12 +263,15 @@ def test_safe_cholesky_inv_matches_the_solve_route(n):
     w_l, w_inv = torch.randn((2, 2, n, n), generator=g, dtype=torch.float64)
     w_det = torch.randn((2,), generator=g, dtype=torch.float64)
     rhs = torch.randn((2, n, n + 1), generator=g, dtype=torch.float64)
+    rhs_low = torch.tril(torch.randn((2, n, n), generator=g, dtype=torch.float64))
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
     products = [(ops.tri_solve_lower(l, rhs, l_inv, trans),
                  ops.tri_solve_lower(l_ref, rhs, None, trans)) for trans in (False, True)]
+    products.append((ops.tri_solve_lower(l, rhs_low, l_inv, b_lower=True),
+                     ops.tri_solve_lower(l_ref, rhs_low)))
     for out, ref in [(l, l_ref), (l_inv, l_inv_ref)] + products:
         assert rel(out.detach(), ref.detach()) < 1e-11
     losses = [
@@ -228,29 +284,43 @@ def test_safe_cholesky_inv_matches_the_solve_route(n):
         got, = torch.autograd.grad(loss, k, retain_graph=True)
         want, = torch.autograd.grad(loss_ref, k, retain_graph=True)
         assert rel(got, want) < 1e-11
+    assert (ops.inv_gemm_skipped > 0) == (leaf is not None)
 
 
-@pytest.mark.parametrize("route", ["inverse", "inverse-adjoint", "solve-f64", "solve-f32"])
-def test_inv_gemm_flops_closed_form(route):
+@pytest.mark.parametrize("route", ["inverse", "inverse-adjoint", "solve-f64", "solve-f32",
+                                   "inverse-split", "inverse-adjoint-split"])
+def test_inv_gemm_flops_closed_form(route, monkeypatch):
     """ops.inv_gemm_flops after one factor and one product with L^{-1} (B =
     2, m = 16, 5 columns) and their backward: per matrix 3 x 2 m^2 n for
     the refined product, 2 x 2 m^2 n for its backward, 3 x 2 m^3 for the
     pullback through the inverse, and 2 x 2 m^3 more for an adjoint of
-    L^{-1} itself. The solve route, at either precision, adds nothing."""
+    L^{-1} itself, none skipped. The solve route, at either precision, adds
+    nothing. At a leaf of 8 (one level of 2 x 2 blocks) the products issue
+    3/4 of the lower or upper times dense ones and of the lower-only
+    outputs of dense operands, 1/2 of L^T L_bar's and L^-T G L^-T's
+    lower-only outputs and 5/8 of L^-T phi: 7.5 m^2 n + 3.75 m^3 (+ 2.5
+    m^3), and skip the rest of the dense count."""
     bsz, m, n = 2, 16, 5
+    split = route.endswith("split")
+    if split:
+        monkeypatch.setattr(ops, "GEMM_LEAF", 8)
     dtype = torch.float32 if route == "solve-f32" else torch.float64
     k = torch.as_tensor(_spd(m, seed=3, batch=bsz), dtype=dtype).requires_grad_(True)
     b = torch.as_tensor(np.random.default_rng(4).normal(size=(bsz, m, n)), dtype=dtype)
     ops.reset_counts()
     if route.startswith("inverse"):
+        adjoint = route.startswith("inverse-adjoint")
         l, _, l_inv = ops.safe_cholesky_inv(k, 2e-6)
         w = ops.tri_solve_lower(l, b, l_inv)
-        assert ops.inv_gemm_flops == bsz * 3 * 2 * m * m * n
-        loss = torch.sum(w ** 2) + (torch.sum(l_inv) if route == "inverse-adjoint" else 0.0)
-        want = bsz * (10 * m * m * n + 6 * m ** 3 + (4 * m ** 3 if route == "inverse-adjoint" else 0))
+        assert ops.inv_gemm_flops == bsz * (9 if split else 12) * m * m * n // 2
+        loss = torch.sum(w ** 2) + (torch.sum(l_inv) if adjoint else 0.0)
+        dense = bsz * (10 * m * m * n + 6 * m ** 3 + (4 * m ** 3 if adjoint else 0))
+        want = (bsz * (30 * m * m * n + 15 * m ** 3 + (10 * m ** 3 if adjoint else 0)) // 4
+                if split else dense)
     else:
         l = ops.safe_cholesky(k, 2e-6)
         loss = torch.sum(ops.tri_solve_lower(l, b) ** 2)
-        want = 0
+        dense = want = 0
     loss.backward()
     assert ops.inv_gemm_flops == want and ops.inv_gemm_captured == 0
+    assert ops.inv_gemm_skipped == dense - want and ops.inv_gemm_skipped_captured == 0

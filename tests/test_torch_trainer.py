@@ -211,6 +211,58 @@ def test_phase_counts_its_layer_states_through_the_inverse(dtype, batch_size, pe
     assert (stats["inv_gemm_flops_per_step"] > 0) == (per_epoch > 0)
 
 
+def test_b128_step_splits_no_product():
+    """At m = 128 (the b128 cells' width) no structured product of the
+    inverse route splits: a training step skips nothing."""
+    from mobocmf_tpu_torch.linalg import ops
+
+    x, ys, fid = _problem(n_real=128, seed=2)
+    models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
+                           device="cpu", dtype=F64) for i, y in enumerate(ys)]
+    stats = {}
+    ops.reset_counts()
+    trainer.train_phase_stacked_chunked(
+        trainer.stack_models(models), torch.as_tensor(x), torch.as_tensor(ys),
+        torch.as_tensor(fid), 1, 1e-3, "all_free", 128,
+        generator=torch.Generator().manual_seed(1), stats=stats)
+    assert stats["inv_gemm_flops_per_step"] > 0
+    assert stats["inv_gemm_skipped_per_step"] == 0 == ops.inv_gemm_skipped
+
+
+def test_split_products_train_as_the_dense_route(monkeypatch):
+    """Three float64 training steps (F = 3, m = 48) with the inverse route's
+    products split two levels deep (a leaf of 8) against the same steps
+    unsplit: losses and KL terms to 1e-10 relative (Adam's normalized
+    update makes parameters whose gradient is at rounding level move apart
+    by more than the products' rounding); the split skips about half of
+    the dense count and issues the rest."""
+    from mobocmf_tpu_torch.linalg import ops
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(48, 6))
+    fid = np.repeat(np.arange(3), [24, 12, 12])
+    ys = np.stack([np.cos(x[:, 0]) + x[:, 1], np.sin(x[:, 2]) * x[:, 3]])
+    runs = []
+    for leaf in (ops.GEMM_LEAF, 8):
+        monkeypatch.setattr(ops, "GEMM_LEAF", leaf)
+        models = [M.init_mfdgp(x, y, fid, 3, generator=torch.Generator().manual_seed(i),
+                               device="cpu", dtype=F64) for i, y in enumerate(ys)]
+        stats = {}
+        _, logs = trainer.train_phase_stacked_chunked(
+            trainer.stack_models(models), torch.as_tensor(x), torch.as_tensor(ys),
+            torch.as_tensor(fid), 3, 1e-3, "all_free", 48,
+            generator=torch.Generator().manual_seed(1), stats=stats)
+        runs.append(([logs.loss, logs.kl], stats))
+    (dense, dense_stats), (split, split_stats) = runs
+    for got, want in zip(split, dense):
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel < 1e-10, rel
+    assert dense_stats["inv_gemm_skipped_per_step"] == 0
+    issued, skipped = split_stats["inv_gemm_flops_per_step"], split_stats["inv_gemm_skipped_per_step"]
+    assert issued + skipped == dense_stats["inv_gemm_flops_per_step"]
+    assert 0.4 < issued / (issued + skipped) < 0.6
+
+
 def test_fitter_rejects_mismatched_inputs():
     x, ys, fid = _problem()
     pf = fitter.BlackBoxMFDGPFitter(2, 100, device="cpu", dtype=F64)
