@@ -144,8 +144,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense, no tensor cores for fp32 / fp64)
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# H100 SXM data-sheet peaks (dense; fp64 on the tensor cores, as port_bench/_flops.py)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 7
 COND_ITERS = 100  # conditioned iterations (15000 in a full BO iteration)
@@ -409,7 +409,7 @@ def k2_breakdown(P, label, args, calls: int = 10) -> None:
 def phase_reference(P) -> None:
     """f64 on the card (K1 f64 + the CUDA path) against the CPU path, and
     the K2 route of the acquisition predictive against the plain route."""
-    trainer, chol, M = P.trainer, P.chol, P.M
+    trainer, M = P.trainer, P.M
     rng = np.random.default_rng(0)
     x = rng.uniform(size=(48, 2))
     fid = np.arange(48) % 2
@@ -421,14 +421,14 @@ def phase_reference(P) -> None:
         models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
                                device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
         model = trainer.stack_models(models)
-        chol.reset_counts()
+        P.counters.reset()
         params, logs = trainer.train_phase_stacked(
             model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
             torch.as_tensor(fid, device=dev), 5, 0.003, "all_free", 48, eps=eps.to(dev),
         )
         mus, var = M.predict_for_acquisition_all(
             params, model.consts, model.config, torch.as_tensor(x[:9] + 0.01, device=dev))
-        out.append((logs.loss.cpu(), mus.cpu(), var.cpu(), chol.launches))
+        out.append((logs.loss.cpu(), mus.cpu(), var.cpu(), P.counters.get("k1.launches")))
     (l_c, m_c, v_c, _), (l_g, m_g, v_g, launched) = out
     rel = max(((a - b).abs().max() / b.abs().max()).item()
               for a, b in ((l_g, l_c), (m_g, m_c), (v_g, v_c)))
@@ -440,10 +440,10 @@ def phase_reference(P) -> None:
     # the same trained f64 model on the card: layer 0 through K2 (no grad)
     # against predict_diag_state (grad enabled, the plain route)
     xq = torch.as_tensor(x[:9] + 0.01, device="cuda")
-    P.fused_svgp.reset_counts()
+    P.counters.reset()
     with torch.no_grad():
         via_k2 = M.predict_for_acquisition_all(params, model.consts, model.config, xq)
-    k2_calls = P.fused_svgp.launches
+    k2_calls = P.counters.get("k2.launches")
     plain = M.predict_for_acquisition_all(params, model.consts, model.config, xq)
     rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(via_k2, plain))
     print(f"[reference] f64 acquisition predictive, K2 route vs plain route: max rel diff "
@@ -567,12 +567,13 @@ def reference_case(P, label, run, one_step, steps, replays) -> None:
     card. Holds the card to the CPU at rel < 1e-8 and K1's launches to one
     eager step's x the steps (f64: no ladder escalation)."""
     chol = P.chol
-    chol.reset_counts()
+    P.counters.reset()
     per_step = one_step()[1]["k1"]
     want, _ = run("cpu")
-    chol.reset_counts()
+    P.counters.reset()
+    esc0 = chol.escalations()
     got, stats = run("cuda")
-    launched, escalated = stats["k1"], chol.escalations()
+    launched, escalated = stats["k1"], chol.escalations() - esc0
     rel = rel_diff(got, want)
     print(f"[reference] captured {label}: {steps} steps in {stats.get('chunks', 1)} chunk(s), "
           f"{stats['replays']} replays, capture {stats['capture_seconds']:.3f} s; card vs CPU "
@@ -604,7 +605,7 @@ def captured_reference(P) -> None:
 
     def launched():
         torch.cuda.synchronize()
-        return P.chol.launches
+        return P.counters.get("k1.launches")
 
     def predictive(params, model, dev):
         """The trained models' acquisition predictive (plain route), the
@@ -844,14 +845,15 @@ def steps_summary(label, records) -> dict:
 def staged(P, fn):
     """Run one stage with every kernel counter set to 0 just before it and
     read just after: (result, seconds, K1 launches, K1 escalations, K2 calls)."""
-    P.chol.reset_counts()
-    P.fused_svgp.reset_counts()
+    P.counters.reset()
+    esc0 = P.chol.escalations()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, seconds, P.chol.launches, P.chol.escalations(), P.fused_svgp.launches
+    return (out, seconds, P.counters.get("k1.launches"), P.chol.escalations() - esc0,
+            P.counters.get("k2.launches"))
 
 
 def layer0_f64(P, lp, st, config, x) -> tuple:
@@ -1216,10 +1218,10 @@ def variants_f64(P) -> None:
         return list(M.predict_for_acquisition_all(params, m.consts, m.config, xq))
 
     def counted(key, fn):
-        P.chol.reset_counts()
+        P.counters.reset()
         out = fn()
         torch.cuda.synchronize()
-        k1_per_step[key] = P.chol.launches / steps
+        k1_per_step[key] = P.counters.get("k1.launches") / steps
         return out
 
     def train(flat):
@@ -1433,12 +1435,12 @@ class StageCounts:
 
         @functools.wraps(inner)
         def run(*args, **kwargs):
-            k1, k2 = P.chol.launches, P.fused_svgp.launches
+            k1, k2 = P.counters.get("k1.launches"), P.counters.get("k2.launches")
             out = inner(*args, **kwargs)
             torch.cuda.synchronize()
             got = self.current.setdefault(stage, [0, 0])
-            got[0] += P.chol.launches - k1
-            got[1] += P.fused_svgp.launches - k2
+            got[0] += P.counters.get("k1.launches") - k1
+            got[1] += P.counters.get("k2.launches") - k2
             return out
 
         return run
@@ -1461,12 +1463,11 @@ def run_loop(P, log_dir, iterations, **kw):
     fid_init = np.concatenate([np.zeros(80), np.ones(40)]).astype(int)
     tee = Tee(sys.stdout)
     with StageCounts(P) as counts, contextlib.redirect_stdout(tee):
-        P.chol.reset_counts()
-        P.fused_svgp.reset_counts()
+        P.counters.reset()
         state = P.loop.run_bo_loop(P.loop_blackboxes, x_init, fid_init, config,
                                    callback=counts.iteration)
         torch.cuda.synchronize()
-        k1, k2 = P.chol.launches, P.fused_svgp.launches
+        k1, k2 = P.counters.get("k1.launches"), P.counters.get("k2.launches")
     return state, tee.text(), counts.records, k1, k2
 
 
@@ -1633,9 +1634,9 @@ def mesh_loop_rank(log_dir: str) -> dict:
 
     from mobocmf_tpu_torch.bench import bench_blackboxes
     from mobocmf_tpu_torch.bo import loop
-    from mobocmf_tpu_torch.linalg import chol, fused_svgp
     from mobocmf_tpu_torch.moop.moop import MOOP
     from mobocmf_tpu_torch.parallel import sharding
+    from mobocmf_tpu_torch.util import counters
 
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = sharding.make_mesh(2, bb=1)
@@ -1662,16 +1663,17 @@ def mesh_loop_rank(log_dir: str) -> dict:
     blackboxes = bench_blackboxes(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize(dev)
-    chol.reset_counts()
-    fused_svgp.reset_counts()
-    sharding.reset_counts()
+    counters.reset()
+    seconds0 = sharding.seconds
     t0 = time.perf_counter()
     with SearchLog() as searches:
         state = loop.run_bo_loop(blackboxes, x_init, fid_init, config)
     torch.cuda.synchronize(dev)
-    out = dict(wall=time.perf_counter() - t0, k1=chol.launches, k2=fused_svgp.launches,
+    out = dict(wall=time.perf_counter() - t0, k1=counters.get("k1.launches"),
+               k2=counters.get("k2.launches"),
                searches=[(kind, sec, st) for kind, sec, st in searches.runs],
-               collective_seconds=sharding.seconds, collectives=sharding.calls,
+               collective_seconds=sharding.seconds - seconds0,
+               collectives=counters.get("collectives"),
                memory=torch.cuda.max_memory_allocated(dev), moop_calls=len(calls),
                x=state.x, fid=state.fidelities, ys=state.ys, hv=state.hypervolumes,
                transport=sharding.transport(mesh))
@@ -1811,10 +1813,10 @@ def phase_mesmoc(P, root) -> dict:
     def counted(stage, fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
-            k1 = P.chol.launches
+            k1 = P.counters.get("k1.launches")
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            current[stage] = current.get(stage, 0) + P.chol.launches - k1
+            current[stage] = current.get(stage, 0) + P.counters.get("k1.launches") - k1
             if stage == "fit":
                 kept["models"] = out[0]
             if stage == "recommendation_hv":
@@ -1828,14 +1830,13 @@ def phase_mesmoc(P, root) -> dict:
                                    (P.MESMOC_MFGP, "get_nextpoint_coupled", "search"),
                                    (E, "recommendation_hv", "recommendation_hv")):
             stack.enter_context(P.patched(owner, name, counted(stage, getattr(owner, name))))
-        P.chol.reset_counts()
-        P.fused_svgp.reset_counts()
+        P.counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = E.main(["--iters", str(MESMOC_ITERS), "--log-dir", str(root)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        k1, k2 = P.chol.launches, P.fused_svgp.launches
+        k1, k2 = P.counters.get("k1.launches"), P.counters.get("k2.launches")
     for name in E.LOG_FILES:
         rows = np.loadtxt(root / name, ndmin=2)
         check(rows.shape[0] == MESMOC_ITERS and bool(np.isfinite(rows).all()),
@@ -1994,14 +1995,13 @@ def run_example(P, label, main, argv):
         stack.enter_context(P.patched(P.JESMOC_MFDGP, "get_nextpoint_coupled",
                                     keep_jesmoc(P, kept)))
         counts = stack.enter_context(StageCounts(P))
-        P.chol.reset_counts()
-        P.fused_svgp.reset_counts()
+        P.counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        k1, k2 = P.chol.launches, P.fused_svgp.launches
+        k1, k2 = P.counters.get("k1.launches"), P.counters.get("k2.launches")
     stages = counts.current
     print(f"[{label}] one iteration in {seconds:.3f} s; K1 / K2 launches per stage "
           + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in stages.items())
@@ -2131,6 +2131,7 @@ def main() -> int:
         from mobocmf_tpu_torch.acquisition import jesmoc
         from mobocmf_tpu_torch.models import exact_gp
         from mobocmf_tpu_torch.parallel import sharding
+        from mobocmf_tpu_torch.util import counters
         from mobocmf_tpu_torch.examples.example_synthetic_2D import main as synthetic2d_main
         from mobocmf_tpu_torch.examples.example_acquisition_mfdgp_forrester import (
             main as forrester_main)
@@ -2153,8 +2154,9 @@ def main() -> int:
                     print(f"[build] {name}: {line.strip()}", flush=True)
 
         P = SimpleNamespace(BlackBoxMFDGPFitter=BlackBoxMFDGPFitter, trainer=trainer,
-                            chol=chol, ops=ops, fused_svgp=fused_svgp, M=M, tree_leaves=tree_leaves,
-                            tree_map=tree_map, device_ms=device_ms, loop_ms=loop_ms,
+                            chol=chol, ops=ops, fused_svgp=fused_svgp, counters=counters, M=M,
+                            tree_leaves=tree_leaves, tree_map=tree_map, device_ms=device_ms,
+                            loop_ms=loop_ms,
                             JESMOC_MFDGP=JESMOC_MFDGP, coupled_acq_stacked=coupled_acq_stacked,
                             optimize=optimize, lbfgs=lbfgs, rbf=rbf,
                             ladder_jitter=ladder_jitter,

@@ -59,7 +59,6 @@ from mobocmf_tpu_torch.mlls.elbo import _data_term, gaussian_expected_log_prob
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.parallel import sharding
 from mobocmf_tpu_torch.util.profiling import span
-from mobocmf_tpu_torch.util import heartbeat
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 
 NUM_OMEGA_POINTS = 10  # reference :277
@@ -497,20 +496,13 @@ def train_conditioned_chunked(
     phase = ConditionedPhase(obj_params, con_params, obj_consts, con_consts, config, data, lr,
                              eps_const, batch_size, max(sizes, default=1), mesh=mesh,
                              fused=FUSED_COND_DEFAULT)
-    try:
-        losses, start = [], 0
-        for ci, size in enumerate(sizes):
-            losses.append(phase.run_chunk(_chunk_draws(generator, phase, batch_size, start, size,
-                                                       draws)))
-            start += size
-            heartbeat.beat(f"cond:chunk{ci}")
-        if stats is not None:
-            stats.update(trainer.steps_stats(phase.steps), chunks=len(sizes))
-        op, cp = phase.result()
-        empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
-        return op, cp, torch.cat(losses) if losses else empty
-    finally:
-        phase.close()
+    (op, cp), losses = trainer.run_chunks(
+        phase, sizes,
+        lambda start, size: phase.run_chunk(_chunk_draws(generator, phase, batch_size, start,
+                                                         size, draws)),
+        "cond", stats)
+    empty = torch.zeros((0,), dtype=data.x.dtype, device=data.x.device)
+    return op, cp, torch.cat(losses) if losses else empty
 
 
 def empty_like_stack(params: M.MFDGPParams, consts: M.MFDGPConsts) -> Tuple[M.MFDGPParams, M.MFDGPConsts]:

@@ -25,6 +25,7 @@ from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.mfdgp import TL
 from mobocmf_tpu_torch.moop.moop import MOOP, NotFeasiblePoints, ParetoSolution, SampledFunction
 from mobocmf_tpu_torch.sampling import rff
+from mobocmf_tpu_torch.util import counters
 
 MAX_TRIES_FOR_FEASIBLE_GRID = 50  # reference MFDGPHandler.MAX_TRIES_FOR_FEASIBLE_GRID
 
@@ -100,10 +101,7 @@ class BlackBoxMFDGPFitter:
         self._x_np: Optional[np.ndarray] = None
         # one entry per trained phase: epochs, seconds, first/last summed
         # loss, K1 launches and ladder escalations during the phase, and its
-        # capture record (trainer.steps_stats: warm-up and capture seconds,
-        # the graph pool's bytes, replays, layer states built through the
-        # explicit inverse, that route's GEMM operations per step and those
-        # its structured products skipped, captured and why)
+        # capture record and chunks as trainer.run_chunks gives them
         self.phase_stats: List[dict] = []
         # seconds of initialize_mfdgp's warm-start fetch, host math and ship
         # to the device, summed over blackboxes (models/mfdgp.py::init_mfdgp)
@@ -193,14 +191,8 @@ class BlackBoxMFDGPFitter:
         return dict(
             label=label, phase=phase, epochs=epochs, seconds=seconds,
             first=float(losses[0]), last=float(losses[-1]),
-            chol_launches=chol.launches - launches0,
-            escalations=chol.escalations() - esc0,
-            warmup_seconds=stats["warmup_seconds"], capture_seconds=stats["capture_seconds"],
-            pool_bytes=stats["pool_bytes"], replays=stats["replays"],
-            inv_states=stats["inv_states"],
-            inv_gemm_flops_per_step=stats["inv_gemm_flops_per_step"],
-            inv_gemm_skipped_per_step=stats["inv_gemm_skipped_per_step"],
-            captured=stats["captured"], capture_reason=stats["capture_reason"],
+            chol_launches=counters.get("k1.launches") - launches0,
+            escalations=chol.escalations() - esc0, **stats,
         )
 
     def _train_group(self, entries, label):
@@ -221,7 +213,7 @@ class BlackBoxMFDGPFitter:
         ):
             if epochs == 0:
                 continue
-            launches0, esc0 = chol.launches, chol.escalations()
+            launches0, esc0 = counters.get("k1.launches"), chol.escalations()
             self._sync()
             t0 = time.perf_counter()
             # a NaN model would poison every later stage: the trainer fails
@@ -360,7 +352,7 @@ class BlackBoxMFDGPFitter:
             thresholds=torch.as_tensor(self.thresholds_cons, dtype=self.dtype, device=self.device),
             row_weights=self.row_weights,
         )
-        launches0, esc0 = chol.launches, chol.escalations()
+        launches0, esc0 = counters.get("k1.launches"), chol.escalations()
         self._sync()
         t0 = time.perf_counter()
         stats: dict = {}

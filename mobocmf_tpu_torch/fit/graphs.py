@@ -29,18 +29,13 @@ parallel/sharding.py::capture_rule, with the reason kept in
 or, under MOBOCMF_FLAT_ADAM=1 (the JAX package's optax.flatten(optax.adam)
 switch, read when a phase builds its optimizer), as one flat tensor.
 
-Kernel counters: K1's wrapper called while its stream is capturing adds
-to `linalg/chol.py::captured`, not to `launches`; `Steps` adds the K1
-launches of every replay to `launches`, and likewise the collectives of
-every replay (parallel/sharding.py::captured) to `sharding.calls`, and
-the layer states built through the explicit inverse of every replay
-(linalg/ops.py::inv_captured) to `ops.inv_launches` and their GEMMs'
-operations (`ops.inv_gemm_captured`) to `ops.inv_gemm_flops`, and the
-operations their structured products skipped (`ops.inv_gemm_skipped_captured`)
-to `ops.inv_gemm_skipped`; each capture sets `inv_gemm_flops_per_step` to
-the operations per replay. (K2 runs only
-without gradients, never inside a captured step.) `close()`
-frees the graph and its memory pool at the end of the phase.
+Counters (util/counters.py): what a step issues while it is being
+captured goes to the recorded tally; `Steps` keeps the recorded tally's
+difference over its captured step and adds it to the ran tally once per
+replay, and each capture sets `inv_gemm_flops_per_step` to the inverse
+route's GEMM operations per replay. (K2 runs only without gradients,
+never inside a captured step.) `close()` frees the graph and its memory
+pool at the end of the phase.
 
 The candidate searches and the MOOP's device polish run their L-BFGS
 (acquisition/lbfgs.py) as four pieces, each a `Steps` of its own with
@@ -56,12 +51,12 @@ from __future__ import annotations
 import copy
 import os
 import time
+from collections import Counter
 from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 
-from mobocmf_tpu_torch.linalg import chol, ops
-from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.util.profiling import span
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -69,12 +64,12 @@ from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 # the Adam state and the cuBLAS workspace; the second runs on warm caches
 WARMUP = 2
 
-# seconds of every Steps' warm-up and capture in this process, the module
-# counter beside linalg/chol.py::launches: a reader that holds no Steps
-# (the benchmark's capture_s.* over a cell's one phase) reads it here
+# seconds of every Steps' warm-up and capture in this process: a reader
+# that holds no Steps (the benchmark's capture_s.* over a cell's one
+# phase) reads it here
 setup_seconds = 0.0
-# the inverse route's GEMM operations (linalg/ops.py::inv_gemm_flops) per
-# replay of the last graph captured in this process, set at each capture:
+# the inverse route's GEMM operations ("inv.gemm_flops") per replay of the
+# last graph captured in this process, set at each capture:
 # the benchmark's inv_gemm_roofline.* reads it here, as capture_s.* reads
 # setup_seconds (Python arithmetic on shapes at capture; a replay adds none)
 inv_gemm_flops_per_step = 0
@@ -226,11 +221,9 @@ class Steps:
     the capture's (each with its synchronizations: set-up only, never a
     replayed chunk's), `pool_bytes` the device memory the capture left
     allocated to the graph's pool, `replays` the graph's replays, `steps`
-    every step run, `inv_states` the layer states its steps built through
-    the explicit inverse (linalg/ops.py::safe_cholesky_inv) and
-    `inv_gemm_flops` the operations of that route's GEMMs
-    (`inv_gemm_skipped` those its structured products left out). Each run is a
-    `graphs.run` span (util/profiling.py)."""
+    every step run and `counts` what its runs added to util/counters.py's
+    ran tally, by name. Each run is a `graphs.run` span
+    (util/profiling.py)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  leaves: Optional[Iterable[torch.Tensor]] = None, capture: bool = True,
@@ -246,26 +239,18 @@ class Steps:
         self.pool_bytes = 0
         self.replays = 0
         self.steps = 0
-        self.inv_states = 0
-        self.inv_gemm_flops = 0
-        self.inv_gemm_skipped = 0
+        self.counts: Counter = Counter()
         self._warm = 0
-        self._k1_per_replay = 0
-        self._collectives_per_replay = 0
-        self._inv_per_replay = 0
-        self._inv_gemm_per_replay = 0
-        self._inv_skipped_per_replay = 0
+        self._per_replay: Counter = Counter()
 
     def run(self, n: int) -> None:
         if n <= 0:
             return
         self.steps += n
-        inv0, gemm0, skipped0 = ops.inv_launches, ops.inv_gemm_flops, ops.inv_gemm_skipped
+        before = counters.ran.copy()
         with span("graphs.run"):
             self._dispatch(n)
-        self.inv_states += ops.inv_launches - inv0
-        self.inv_gemm_flops += ops.inv_gemm_flops - gemm0
-        self.inv_gemm_skipped += ops.inv_gemm_skipped - skipped0
+        self.counts.update(counters.ran - before)
 
     def _dispatch(self, n: int) -> None:
         if self.device.type != "cuda" or not self.capture:
@@ -286,11 +271,8 @@ class Steps:
             for _ in range(n - done):
                 self.graph.replay()
         self.replays += n - done
-        chol.launches += self._k1_per_replay * (n - done)
-        sharding.calls += self._collectives_per_replay * (n - done)
-        ops.inv_launches += self._inv_per_replay * (n - done)
-        ops.inv_gemm_flops += self._inv_gemm_per_replay * (n - done)
-        ops.inv_gemm_skipped += self._inv_skipped_per_replay * (n - done)
+        for name, count in self._per_replay.items():
+            counters.add(name, count * (n - done))
 
     def _warm_up(self, n: int) -> None:
         global setup_seconds
@@ -313,8 +295,7 @@ class Steps:
         global setup_seconds, inv_gemm_flops_per_step
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        before = (chol.captured, sharding.captured, ops.inv_captured, ops.inv_gemm_captured,
-                  ops.inv_gemm_skipped_captured)
+        before = counters.recorded.copy()
         graph = torch.cuda.CUDAGraph()
         # the step's first backward allocates its gradients from the graph's
         # pool (PyTorch's whole-network capture)
@@ -327,12 +308,8 @@ class Steps:
         self.capture_seconds = time.perf_counter() - t0
         setup_seconds += self.capture_seconds
         self.pool_bytes = torch.cuda.memory_allocated(self.device) - allocated
-        self._k1_per_replay = chol.captured - before[0]
-        self._collectives_per_replay = sharding.captured - before[1]
-        self._inv_per_replay = ops.inv_captured - before[2]
-        self._inv_gemm_per_replay = ops.inv_gemm_captured - before[3]
-        self._inv_skipped_per_replay = ops.inv_gemm_skipped_captured - before[4]
-        inv_gemm_flops_per_step = self._inv_gemm_per_replay
+        self._per_replay = counters.recorded - before
+        inv_gemm_flops_per_step = self._per_replay["inv.gemm_flops"]
         self.graph = graph
 
     def close(self) -> None:

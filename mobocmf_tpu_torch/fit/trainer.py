@@ -31,7 +31,7 @@ draws).
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -356,17 +356,39 @@ def steps_stats(steps: graphs.Steps) -> dict:
     """A phase's capture record: the warm-up's and the capture's seconds,
     the graph pool's bytes, replays, steps, the layer states built through
     the explicit inverse (F a step in float64), that route's GEMM
-    operations per step (linalg/ops.py::inv_gemm_flops over the steps run)
-    and the dense-equivalent operations its structured products skipped
-    per step (`ops.inv_gemm_skipped`), captured and why."""
-    steps_run = max(steps.steps, 1)
+    operations per step ("inv.gemm_flops" over the steps run) and the
+    dense-equivalent operations its structured products skipped per step
+    ("inv.gemm_skipped"), captured and why."""
+    steps_run, counts = max(steps.steps, 1), steps.counts
     return dict(warmup_seconds=steps.warmup_seconds, capture_seconds=steps.capture_seconds,
                 pool_bytes=steps.pool_bytes, replays=steps.replays, steps=steps.steps,
-                inv_states=steps.inv_states,
-                inv_gemm_flops_per_step=steps.inv_gemm_flops / steps_run,
-                inv_gemm_skipped_per_step=steps.inv_gemm_skipped / steps_run,
+                inv_states=counts["inv.states"],
+                inv_gemm_flops_per_step=counts["inv.gemm_flops"] / steps_run,
+                inv_gemm_skipped_per_step=counts["inv.gemm_skipped"] / steps_run,
                 captured=steps.capture,
                 capture_reason=steps.capture_reason)
+
+
+def run_chunks(phase, sizes: List[int], chunk: Callable[[int, int], object], tag: str,
+               stats: Optional[dict] = None, after: Optional[Callable[[int], None]] = None):
+    """The chunk loop of a training or conditioned phase's entry point:
+    `chunk(start, size)` makes a chunk's draws and runs it, returning its
+    log; after it, heartbeat `{tag}:chunk{ci}` and `after(ci)` where given.
+    `stats`, when given, receives `steps_stats` and the chunks. Returns
+    (phase.result(), the chunks' logs) and closes the phase either way."""
+    try:
+        logs, start = [], 0
+        for ci, size in enumerate(sizes):
+            logs.append(chunk(start, size))
+            start += size
+            heartbeat.beat(f"{tag}:chunk{ci}")
+            if after is not None:
+                after(ci)
+        if stats is not None:
+            stats.update(steps_stats(phase.steps), chunks=len(sizes))
+        return phase.result(), logs
+    finally:
+        phase.close()
 
 
 def _phase_draws(generator, phase: TrainPhase, start, count, eps, perms):
@@ -466,21 +488,15 @@ def train_phase_stacked_chunked(
     sizes = chunk_sizes(num_epochs, x.shape[0])
     phase = TrainPhase(model, x, ys, fidelities, lr, mask_kind, batch_size, row_weights,
                        num_data, max(sizes, default=1), mesh=mesh)
-    try:
-        logs, start = [], 0
-        for ci, size in enumerate(sizes):
-            logs.append(phase.run_chunk(*_phase_draws(generator, phase, start, size, eps, perms)))
-            start += size
-            heartbeat.beat(f"train:chunk{ci}")
-            phase.check_finite(f"[{label}] chunk {ci}")
-        if stats is not None:
-            stats.update(steps_stats(phase.steps), chunks=len(sizes))
-        if not logs:
-            return phase.result(), _empty_log(ys.shape[0], x)
-        return phase.result(), EpochLog(loss=torch.cat([l.loss for l in logs], dim=1),
-                                        kl=torch.cat([l.kl for l in logs], dim=1))
-    finally:
-        phase.close()
+    params, logs = run_chunks(
+        phase, sizes,
+        lambda start, size: phase.run_chunk(*_phase_draws(generator, phase, start, size, eps,
+                                                          perms)),
+        "train", stats, lambda ci: phase.check_finite(f"[{label}] chunk {ci}"))
+    if not logs:
+        return params, _empty_log(ys.shape[0], x)
+    return params, EpochLog(loss=torch.cat([l.loss for l in logs], dim=1),
+                            kl=torch.cat([l.kl for l in logs], dim=1))
 
 
 def train_phase(model: M.MFDGPModel, x, y, fidelities, num_epochs: int, lr: float,

@@ -24,12 +24,9 @@ in 32x32 tiles fits, else the output buffer in L2) and the dynamic shared
 memory per block. It mirrors csrc/chol_factor.cuh::smem_bytes, which the
 launch checks; K2 (linalg/fused_svgp.py) factorizes under the same plan.
 
-Counters: `launches` counts kernel launches that ran (CUDA path only). A
-launch made while the stream is being captured into a CUDA graph runs
-only when the graph is replayed, so it adds to `captured` instead, and
-the graph's owner (fit/graphs.py) adds the launches of every replay to
-`launches`. `escalations()` counts factorizations that climbed the
-ladder, summed on the device without a host read until asked, into one
+Counters: each launch adds to util/counters.py's "k1.launches" (CUDA path
+only). `escalations()` counts factorizations that climbed the ladder,
+summed on the device without a host read until asked, into one
 persistent tensor per device that a captured step adds into in place.
 """
 
@@ -41,12 +38,10 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-# kernel launches of csrc/chol.cu that ran since the last reset_counts(),
-# and launches recorded into CUDA graphs being captured (run at replay)
-launches = 0
-captured = 0
+from mobocmf_tpu_torch.util import counters
+
 # per device: factorizations that climbed the ladder (int64, one element;
-# zeroed in place by reset_counts, never replaced: graphs add into it)
+# never replaced: graphs add into it)
 _escalated: Dict[torch.device, torch.Tensor] = {}
 
 _C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -106,16 +101,8 @@ def max_active_clusters(pl: Plan, dtype: torch.dtype) -> int:
     return fn(int(dtype == torch.float64), pl.cluster, int(pl.resident), pl.smem_bytes)
 
 
-def reset_counts() -> None:
-    global launches, captured
-    launches = 0
-    captured = 0
-    for count in _escalated.values():
-        count.zero_()
-
-
 def escalations() -> int:
-    """Factorizations that needed a ladder step since the last reset."""
+    """Factorizations that needed a ladder step in this process."""
     return int(sum(int(t.item()) for t in _escalated.values()))
 
 
@@ -169,7 +156,6 @@ def _entry(dtype: torch.dtype):
 
 
 def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool, pl: Plan = None):
-    global launches, captured
     if not a.is_contiguous():
         raise ValueError("cholesky: the CUDA kernel takes a contiguous (B, n, n) tensor")
     pl = plan(a.shape[-1], a.dtype) if pl is None else pl
@@ -185,10 +171,7 @@ def _launch(a: torch.Tensor, jitter: torch.Tensor, ladder: bool, pl: Plan = None
         )
     if err != 0:
         raise launch_error("cholesky", err)
-    if torch.cuda.is_current_stream_capturing():
-        captured += 1
-    else:
-        launches += 1
+    counters.add("k1.launches")
     return out, level
 
 

@@ -25,8 +25,8 @@ wider one leaves SMs without a predictive block. Both solves take that
 width. It mirrors csrc/fused_svgp.cu::solve_smem_bytes, which the launch
 checks.
 
-Counters: `launches` counts wrapper calls that launched the kernels (each
-call is KERNELS_PER_CALL device kernels).
+Counters: each wrapper call that launches the kernels adds to
+util/counters.py's "k2.launches" (KERNELS_PER_CALL device kernels a call).
 """
 
 from __future__ import annotations
@@ -40,9 +40,8 @@ import torch
 from mobocmf_tpu_torch.core.config import MIN_VARIANCE
 from mobocmf_tpu_torch.linalg import chol
 from mobocmf_tpu_torch.linalg.chol import cholesky_plain, launch_error
+from mobocmf_tpu_torch.util import counters
 
-# wrapper calls that launched csrc/fused_svgp.cu since the last reset_counts()
-launches = 0
 # device kernels per call: Gram + factor, the [L_S | m] solve, the predictive
 KERNELS_PER_CALL = 3
 
@@ -83,11 +82,6 @@ def plan(m: int, n: int, batch: int, dtype: torch.dtype) -> Plan:
         raise ValueError(f"fused_rbf_svgp_forward: no stripe of M = {m} rows fits a block")
     w = next((w for w in fits if -(-n // w) * batch >= SMS), fits[-1])
     return Plan(w, solve_smem_bytes(m, w, itemsize))
-
-
-def reset_counts() -> None:
-    global launches
-    launches = 0
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,7 +133,6 @@ def _entry(dtype: torch.dtype):
 
 
 def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = None):
-    global launches
     batch, m = mean.shape
     n, d = x.shape
     sp = plan(m, n, batch, z.dtype) if sp is None else sp
@@ -159,7 +152,7 @@ def _launch(z, x, mean, ls_chol, lengthscale, outputscale, jitter, sp: Plan = No
         )
     if err != 0:
         raise launch_error("fused_rbf_svgp_forward", err)
-    launches += 1
+    counters.add("k2.launches")
     return mu, var
 
 

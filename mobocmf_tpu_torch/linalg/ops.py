@@ -13,15 +13,12 @@ GEMMs on the saved L and L^{-1}; `tri_solve_lower(l, b, l_inv)` is the
 product with L^{-1} in place of the solve, differentiated by GEMMs too,
 so such a caller runs one triangular solve a factor, backward included.
 
-Counters: `inv_launches` counts `safe_cholesky_inv` calls that ran; one
-made while the stream is being captured into a CUDA graph adds to
-`inv_captured` instead, and fit/graphs.py adds the calls of every replay
-to `inv_launches` (linalg/chol.py's convention). `inv_gemm_flops` counts
-the operations of the GEMMs the inverse route runs (2 rows inner cols
-for each matrix of a batched product, from the operands' shapes at the
-call): `_SolveByInverse`'s product, its refinement and its backward,
-L^{-1}'s own adjoint and `chol_pullback` given the inverse. A GEMM recorded
-while capturing adds to `inv_gemm_captured`, likewise added per replay.
+Counters (util/counters.py): each `safe_cholesky_inv` call adds to
+"inv.states", and "inv.gemm_flops" counts the operations of the GEMMs the
+inverse route runs (2 rows inner cols for each matrix of a batched
+product, from the operands' shapes at the call): `_SolveByInverse`'s
+product, its refinement and its backward, L^{-1}'s own adjoint and
+`chol_pullback` given the inverse.
 
 Structured products (`_product`): every product the route counts has a
 triangular operand (L, L^{-1}, L_S = tril(chol_raw), phi, and products or
@@ -30,10 +27,9 @@ output of which the caller keeps the lower triangle. From m = 2 GEMM_LEAF
 rows up, such a product splits into 2 x 2 blocks, recursively, skips the
 block products with a zero operand block and the output blocks not kept,
 and issues each remaining block product as one batched GEMM into a view of
-one output; below, it is the one GEMM of before. `inv_gemm_flops` counts
-what was issued, block by block; `inv_gemm_skipped` the dense-equivalent
-operations left out (`inv_gemm_skipped_captured` while capturing, added
-per replay).
+one output; below, it is the one GEMM of before. "inv.gemm_flops" counts
+what was issued, block by block; "inv.gemm_skipped" the dense-equivalent
+operations left out.
 
 Convention: JAX's solve_triangular(l.T, b, lower=False) is
 torch.linalg.solve_triangular(l.mT, b, upper=True) here.
@@ -47,34 +43,11 @@ from typing import Optional
 import torch
 
 from mobocmf_tpu_torch.linalg.chol import cholesky as k1_cholesky
-
-# safe_cholesky_inv calls that ran since the last reset_counts(), and calls
-# recorded into CUDA graphs being captured (run at replay)
-inv_launches = 0
-inv_captured = 0
-# operations of the inverse route's GEMMs that ran, and of those recorded
-# into CUDA graphs being captured
-inv_gemm_flops = 0
-inv_gemm_captured = 0
-# dense-equivalent operations that the structured products left out, and
-# of those recorded into CUDA graphs being captured
-inv_gemm_skipped = 0
-inv_gemm_skipped_captured = 0
+from mobocmf_tpu_torch.util import counters
 
 # a structured product splits while its half-block has at least this many
 # rows: twice at m = 2048, never at m <= 1023
 GEMM_LEAF = 512
-
-
-def reset_counts() -> None:
-    global inv_launches, inv_captured, inv_gemm_flops, inv_gemm_captured
-    global inv_gemm_skipped, inv_gemm_skipped_captured
-    inv_launches = 0
-    inv_captured = 0
-    inv_gemm_flops = 0
-    inv_gemm_captured = 0
-    inv_gemm_skipped = 0
-    inv_gemm_skipped_captured = 0
 
 
 def _flops(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -82,19 +55,9 @@ def _flops(a: torch.Tensor, b: torch.Tensor) -> int:
     return 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
 
 
-def _record(a: torch.Tensor, flops: int, skipped: int = 0) -> None:
-    global inv_gemm_flops, inv_gemm_captured, inv_gemm_skipped, inv_gemm_skipped_captured
-    if a.is_cuda and torch.cuda.is_current_stream_capturing():
-        inv_gemm_captured += flops
-        inv_gemm_skipped_captured += skipped
-    else:
-        inv_gemm_flops += flops
-        inv_gemm_skipped += skipped
-
-
 def _gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b, its operations added to the inverse route's GEMM counter."""
-    _record(a, _flops(a, b))
+    counters.add("inv.gemm_flops", _flops(a, b))
     return a @ b
 
 
@@ -169,7 +132,8 @@ def _product(a: torch.Tensor, b: torch.Tensor, kind_a: str = "dense", kind_b: st
                      a.expand(batch + a.shape[-2:]).reshape((-1,) + a.shape[-2:]),
                      b.expand(batch + b.shape[-2:]).reshape((-1,) + b.shape[-2:]),
                      kind_a, kind_b, lower_out, leaf, False)
-    _record(a, issued, _flops(a, b) - issued)
+    counters.add("inv.gemm_flops", issued)
+    counters.add("inv.gemm_skipped", _flops(a, b) - issued)
     return out
 
 
@@ -312,12 +276,8 @@ def safe_cholesky_inv(k: torch.Tensor, jitter):
     L^{-1} (lower): (l, level, l_inv), differentiable through l and l_inv
     by GEMMs alone (`_SafeCholeskyInv`). Multiply by l_inv through
     `tri_solve_lower(l, b, l_inv)`."""
-    global inv_launches, inv_captured
     out = _SafeCholeskyInv.apply(k.contiguous(), jitter, k.dtype != torch.float64)
-    if k.is_cuda and torch.cuda.is_current_stream_capturing():
-        inv_captured += 1
-    else:
-        inv_launches += 1
+    counters.add("inv.states")
     return out
 
 
@@ -361,7 +321,7 @@ def tri_solve_lower(l: torch.Tensor, b: torch.Tensor, l_inv: Optional[torch.Tens
                     trans: bool = False, b_lower: bool = False) -> torch.Tensor:
     """L^{-1} b, or L^{-T} b with `trans`: a triangular solve, or given
     l_inv = L^{-1} GEMMs: one where nothing differentiates l (the
-    acquisition's states, outside `inv_gemm_flops`), else
+    acquisition's states, outside "inv.gemm_flops"), else
     `_SolveByInverse`'s refined product and its GEMM backward, whose
     structured products skip the zero triangle of b where `b_lower` says b
     is lower triangular (the two other routes take b as it is)."""

@@ -159,11 +159,12 @@ class _Stage:
         self.device, self.out, self.name = device, out, name
 
     def __enter__(self):
-        from mobocmf_tpu_torch.linalg import chol, fused_svgp
         from mobocmf_tpu_torch.parallel import sharding
+        from mobocmf_tpu_torch.util import counters
 
         self._sync()
-        self.k0 = (chol.launches, fused_svgp.launches, sharding.seconds, sharding.calls)
+        self.k0 = (counters.get("k1.launches"), counters.get("k2.launches"), sharding.seconds,
+                   counters.get("collectives"))
         self.t0 = time.perf_counter()
         return self
 
@@ -172,15 +173,15 @@ class _Stage:
             torch.cuda.synchronize(self.device)
 
     def __exit__(self, *exc):
-        from mobocmf_tpu_torch.linalg import chol, fused_svgp
         from mobocmf_tpu_torch.parallel import sharding
+        from mobocmf_tpu_torch.util import counters
 
         self._sync()
         k1, k2, cs, cc = self.k0
         self.out[self.name] = dict(
-            seconds=time.perf_counter() - self.t0, k1=chol.launches - k1,
-            k2=fused_svgp.launches - k2, collective_seconds=sharding.seconds - cs,
-            collectives=sharding.calls - cc)
+            seconds=time.perf_counter() - self.t0, k1=counters.get("k1.launches") - k1,
+            k2=counters.get("k2.launches") - k2, collective_seconds=sharding.seconds - cs,
+            collectives=counters.get("collectives") - cc)
         return False
 
 

@@ -33,11 +33,10 @@ torch.distributed.nn.functional's all_gather sums the gradient over the
 ranks instead (its loss convention is the first kind), which would count a
 replicated loss once per rank.
 
-Transport: every collective goes through `_collective`, which times it
-(`seconds`, `calls`). One issued while the stream is being captured into
-a CUDA graph runs only at the graph's replays, so it adds to `captured`
-instead, and the graph's owner (fit/graphs.py::Steps) adds the
-collectives of every replay to `calls`; replays add no host seconds. Gloo takes CUDA tensors for the collectives used
+Transport: every collective goes through `_collective`, which adds its
+host seconds to `seconds` and counts it as util/counters.py's
+"collectives" (a collective captured into a CUDA graph counts at each
+replay, which adds no host seconds). Gloo takes CUDA tensors for the collectives used
 here (all_reduce, all_gather_into_tensor, broadcast): it stages them
 through host memory itself, so ranks sharing one card over gloo exchange
 through the host and NCCL ranks card to card (`transport`).
@@ -53,22 +52,15 @@ import torch
 import torch.distributed as dist
 
 from mobocmf_tpu_torch.core.device import DeviceLike, resolve_device
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.util.tree import tree_map
 
 AXES = ("bb", "dp")
 
-# seconds spent in collective calls and their count since reset_counts()
-# (host clock: a gloo call returns when it is done, an NCCL call when it
-# is queued on the stream)
+# seconds spent in collective calls in this process (host clock: a gloo
+# call returns when it is done, an NCCL call when it is queued on the
+# stream)
 seconds = 0.0
-calls = 0
-# collectives recorded into CUDA graphs being captured (run at replay)
-captured = 0
-
-
-def reset_counts() -> None:
-    global seconds, calls, captured
-    seconds, calls, captured = 0.0, 0, 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +140,11 @@ def block(n: int, parts: int, index: int) -> slice:
 
 
 def _collective(fn: Callable[[], None]) -> None:
-    global seconds, calls, captured
+    global seconds
     t0 = time.perf_counter()
     fn()
     seconds += time.perf_counter() - t0
-    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
-        captured += 1
-    else:
-        calls += 1
+    counters.add("collectives")
 
 
 def all_reduce(t: torch.Tensor, grp) -> torch.Tensor:

@@ -136,6 +136,7 @@ def factor_errors(fitter, kernel) -> list:
 def run_route(route: str, points: int, epochs: int, device: torch.device) -> dict:
     from mobocmf_tpu_torch.linalg import chol
     from mobocmf_tpu_torch.moop import moop as moop_mod
+    from mobocmf_tpu_torch.util import counters
 
     kernel = chol._launch
 
@@ -147,12 +148,11 @@ def run_route(route: str, points: int, epochs: int, device: torch.device) -> dic
     with contextlib.ExitStack() as stack:
         if route == "library":
             stack.enter_context(patched(chol, "_launch", library))
-        chol.reset_counts()
         fitter = make_fitter(points, epochs, device)
         errors["initial"] = factor_errors(fitter, kernel)
-        chol.reset_counts()
+        counters.reset()
         fitter.train_mfdgps()
-        k1_train = chol.launches
+        k1_train = counters.get("k1.launches")
         errors["trained"] = factor_errors(fitter, kernel)
         fitter._sample_models = stages.wrap("rff_draws", fitter._sample_models)
         for owner, name, key in (

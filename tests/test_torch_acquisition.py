@@ -27,9 +27,10 @@ from mobocmf_tpu_torch.acquisition import lbfgs as LB
 from mobocmf_tpu_torch.acquisition import optimize as PO
 from mobocmf_tpu_torch.bo.recommend import recommendation_model_pass
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter as PFitter
-from mobocmf_tpu_torch.linalg import ops
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.models.convert import model_from_numpy
 from test_torch_lbfgs import optax_lanes
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 NAMES = [("o1", False), ("o2", False), ("c1", True)]
@@ -389,13 +390,13 @@ def test_jesmoc_runs_pareto_and_conditioning_itself(highest):
     # float64 training and conditioning build F = 2 layer states a step
     # through the explicit inverse (linalg/ops.py); the Pareto stage and
     # the search build theirs by the solves
-    inv0 = ops.inv_launches
+    inv0 = counters.get("inv.states")
     jes = PJ.JESMOC_MFDGP(f, num_fidelities=2, eval_highest_fidelity=highest, seed=1,
                           acq_raw_samples=20, acq_maxiter=15)
     assert jes.blackbox_mfdgp_fitter_cond is f and f.phase_stats[-1]["label"] == "COND"
     assert [st["inv_states"] for st in f.phase_stats] == [2 * 3] * len(f.phase_stats)
-    assert ops.inv_launches - inv0 == f.phase_stats[-1]["inv_states"]
-    inv0 = ops.inv_launches
+    assert counters.get("inv.states") - inv0 == f.phase_stats[-1]["inv_states"]
+    inv0 = counters.get("inv.states")
     assert jes.pareto_set.shape == (4, 2)
     for name, is_con in NAMES:
         jes.add_blackbox(1, name, cost_evaluation=10.0, is_constraint=is_con)
@@ -405,7 +406,7 @@ def test_jesmoc_runs_pareto_and_conditioning_itself(highest):
     assert x_next.shape == (2,) and bool(((x_next >= 0) & (x_next <= 1)).all())
     assert fidelity == 1 if highest else fidelity in (0, 1)
     assert bool(torch.isfinite(jes.last_values).all()) and bool((jes.last_values >= 0).all())
-    assert ops.inv_launches == inv0
+    assert counters.get("inv.states") == inv0
 
 
 

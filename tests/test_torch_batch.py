@@ -21,19 +21,10 @@ from mobocmf_tpu_torch.acquisition import jesmoc as PJ
 from mobocmf_tpu_torch.acquisition.random_choice import Random_choice
 from mobocmf_tpu_torch.models.convert import model_from_numpy
 from test_torch_loop import port_fitter
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 NAMES = [("o1", False), ("o2", False), ("c1", True)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small tensor ops, for which torch's intra-op
-    thread pool costs far more than it gives on a shared CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _base_np(x):

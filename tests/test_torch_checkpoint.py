@@ -20,18 +20,9 @@ from mobocmf_tpu_torch.models.mfdgp import TL
 from mobocmf_tpu_torch.util import checkpoint
 from mobocmf_tpu_torch.util.describe import describe_hyperparams, print_lengthscales_and_outputscale
 from mobocmf_tpu_torch.util.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small tensor ops, for which torch's intra-op
-    thread pool costs far more than it gives on a shared CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _fitter(**kw):

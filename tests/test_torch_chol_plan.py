@@ -28,6 +28,7 @@ import torch
 from mobocmf_tpu.linalg import chol as jchol
 from mobocmf_tpu_torch.fit.bucketing import next_bucket
 from mobocmf_tpu_torch.linalg import chol
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 HEADER = Path(chol.__file__).resolve().parent.parent / "csrc" / "chol_factor.cuh"
 

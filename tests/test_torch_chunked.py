@@ -22,6 +22,7 @@ from mobocmf_tpu_torch.util.tree import tree_leaves
 from test_torch_conditioned import _jax_step_draws, _setup
 from test_torch_trainer import _assert_params_close, _jax_draws, _jax_stack, _padded, \
     _port_model, _problem
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 SIZES = [2, 2, 1]

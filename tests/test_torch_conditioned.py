@@ -21,6 +21,7 @@ from mobocmf_tpu_torch.fit import conditioned as C
 from mobocmf_tpu_torch.fit import fitter as pfitter
 from mobocmf_tpu_torch.models.convert import model_from_numpy
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 

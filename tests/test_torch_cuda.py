@@ -15,6 +15,7 @@ import torch
 from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.linalg import chol, fused_svgp, ops
 from mobocmf_tpu_torch.models import mfdgp as M
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.util.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
@@ -39,9 +40,9 @@ def _spd(batch, n, seed, dtype, device):
 def test_kernel_matches_plain(cuda_device, dtype, batch, n):
     a = _spd(batch, n, n, dtype, cuda_device)
     jit = torch.full((batch,), 1e-6, dtype=dtype, device=cuda_device)
-    chol.reset_counts()
+    counters.reset()
     got, level = chol.cholesky(a, jitter=jit, ladder=True)
-    assert chol.launches == 1
+    assert counters.get("k1.launches") == 1
     want, want_level = chol.cholesky_plain(a, jit, True)
     torch.cuda.synchronize()
     rel = ((got - want).abs().max() / want.abs().max()).item()
@@ -84,9 +85,9 @@ def test_kernel_plan_storage_and_cluster(cuda_device, dtype, batch, n, cluster, 
     assert chol.max_active_clusters(pl, dtype) >= 1
     a = _spd(batch, n, n + 1, dtype, cuda_device)
     jit = torch.full((batch,), 1e-6, dtype=dtype, device=cuda_device)
-    chol.reset_counts()
+    counters.reset()
     got, level = chol.cholesky(a, jitter=jit, ladder=True)
-    assert chol.launches == 1
+    assert counters.get("k1.launches") == 1
     _check_against_plain(a, jit, got, level, dtype)
 
 
@@ -146,13 +147,13 @@ def test_f64_training_on_card_matches_cpu(cuda_device):
         models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
                                device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
         model = trainer.stack_models(models)
-        chol.reset_counts()
+        counters.reset()
         params, logs = trainer.train_phase_stacked(
             model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
             torch.as_tensor(fid, device=dev), 6, 0.003, "all_free", 40, eps=eps.to(dev),
         )
         if dev != "cpu":
-            assert chol.launches == 2 * 6
+            assert counters.get("k1.launches") == 2 * 6
         runs.append(logs.loss.cpu())
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-8, atol=0.0)
 
@@ -170,12 +171,12 @@ def _k2_problem(batch, m, n, d, dtype, device):
                                          (6, 512, 200, 2), (2, 77, 45, 1)])
 def test_k2_matches_plain(cuda_device, dtype, batch, m, n, d):
     args = _k2_problem(batch, m, n, d, dtype, cuda_device)
-    fused_svgp.reset_counts()
+    counters.reset()
     with torch.no_grad():
         mu, var = fused_svgp.fused_rbf_svgp_forward(*args)
         mu_p, var_p = fused_svgp.fused_rbf_svgp_forward_plain(*args)
     torch.cuda.synchronize()
-    assert fused_svgp.launches == 1
+    assert counters.get("k2.launches") == 1
     tol = 2e-3 if dtype == torch.float32 else 1e-10
     torch.testing.assert_close(mu, mu_p, rtol=tol, atol=tol)
     torch.testing.assert_close(var, var_p, rtol=tol, atol=tol)
@@ -242,10 +243,10 @@ def test_acquisition_predictive_k2_route_matches_plain_f64(cuda_device):
                            device=cuda_device, dtype=torch.float64) for i, y in enumerate(ys)]
     model = trainer.stack_models(models)
     xq = torch.as_tensor(x[:9] + 0.01, device=cuda_device)
-    fused_svgp.reset_counts()
+    counters.reset()
     with torch.no_grad():
         via_k2 = M.predict_for_acquisition_all(model.params, model.consts, model.config, xq)
-    assert fused_svgp.launches == 1
+    assert counters.get("k2.launches") == 1
     plain = M.predict_for_acquisition_all(model.params, model.consts, model.config, xq)
     for a, b in zip(via_k2, plain):
         torch.testing.assert_close(a, b.detach(), rtol=1e-9, atol=1e-12)
@@ -271,10 +272,9 @@ def test_bo_loop_fast_iteration_on_card(cuda_device, tmp_path):
     config = loop.BOConfig(num_bo_iterations=1, num_epochs_1=5, num_epochs_2=8, opt_grid_size=25,
                            pareto_set_size=6, seed=1, log_dir=str(tmp_path),
                            track_recommendation=True, recommendation_grid_size=200)
-    chol.reset_counts()
-    fused_svgp.reset_counts()
+    counters.reset()
     state = loop.run_bo_loop(bbs, x, fid, config)
-    assert chol.launches > 2 * (5 + 8) and fused_svgp.launches >= 2
+    assert counters.get("k1.launches") > 2 * (5 + 8) and counters.get("k2.launches") >= 2
     assert state.x.shape == (13, 2) and bool(((state.x >= 0) & (state.x <= 1)).all())
     phases = np.loadtxt(tmp_path / "phase_seconds.txt")
     assert phases.shape == (8,) and np.isfinite(phases).all() and phases[3] > 0
@@ -476,9 +476,9 @@ def test_captured_device_polish_matches_eager_f64(cuda_device, monkeypatch):
 def test_kernel_small_n_matches_plain(cuda_device, dtype, ladder, batch, n):
     a = _spd(batch, n, 100 + n, dtype, cuda_device)
     jit = torch.full((batch,), 1e-6, dtype=dtype, device=cuda_device)
-    chol.reset_counts()
+    counters.reset()
     got, level = chol.cholesky(a, jitter=jit, ladder=ladder)
-    assert chol.launches == 1
+    assert counters.get("k1.launches") == 1
     want, want_level = chol.cholesky_plain(a, jit, ladder)
     torch.cuda.synchronize()
     rel = ((got - want).abs().max() / want.abs().max()).item()
@@ -519,11 +519,11 @@ def test_mfgp_fit_on_card_matches_cpu(cuda_device):
     xs = torch.as_tensor(rng.uniform(size=(9, 2)))
     out = []
     for dev in ("cpu", cuda_device):
-        chol.reset_counts()
+        counters.reset()
         m = G.fit_mfgp(G.init_mfgp(xf, y, 2, row_valid=valid, device=dev, dtype=torch.float64),
                        num_iters=20)
         if dev != "cpu":
-            assert chol.launches == 20
+            assert counters.get("k1.launches") == 20
         mean, var = G.predict(m, xs.to(dev), 1)
         out.append([t.cpu() for t in (m.params.raw_noise, mean, var)])
     for a, b in zip(out[1], out[0]):
@@ -573,7 +573,7 @@ def test_captured_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_siz
         models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
                                device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
         model = trainer.stack_models(models)
-        chol.reset_counts()
+        counters.reset()
         stats = {}
         params, logs = trainer.train_phase_stacked_chunked(
             model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
@@ -581,7 +581,7 @@ def test_captured_chunks_match_eager_cpu_f64(cuda_device, monkeypatch, batch_siz
             eps=eps.to(dev), perms=None if perms is None else perms.to(dev), stats=stats,
         )
         if dev != "cpu":
-            assert chol.launches == 2 * nb * epochs
+            assert counters.get("k1.launches") == 2 * nb * epochs
             assert stats["replays"] == epochs - 2 and stats["chunks"] == 3
             assert stats["capture_seconds"] > 0
         runs.append([logs.loss, logs.kl] + _predictive(params, model, dev))
@@ -612,14 +612,14 @@ def test_captured_three_fidelity_chunks_match_eager_cpu_f64(cuda_device, monkeyp
         models = [M.init_mfdgp(x, y, fid, nf, generator=torch.Generator().manual_seed(i),
                                device=dev, dtype=torch.float64) for i, y in enumerate(ys)]
         model = trainer.stack_models(models)
-        ops.reset_counts()
+        counters.reset()
         stats = {}
         params, logs = trainer.train_phase_stacked_chunked(
             model, torch.as_tensor(x, device=dev), torch.as_tensor(ys, device=dev),
             torch.as_tensor(fid, device=dev), epochs, 0.003, "all_free", n,
             eps=eps.to(dev), stats=stats,
         )
-        assert stats["inv_states"] == ops.inv_launches == nf * epochs
+        assert stats["inv_states"] == counters.get("inv.states") == nf * epochs
         if dev != "cpu":
             assert stats["replays"] == epochs - 2 and stats["chunks"] == 3
             assert graphs.inv_gemm_flops_per_step == stats["inv_gemm_flops_per_step"]
@@ -653,13 +653,13 @@ def test_captured_conditioned_chunks_match_eager_cpu_f64(cuda_device, monkeypatc
                                  steps)
         draws = [C.StepDraws(None, chunk.x_tilde[i].to(dev), chunk.eps[i].to(dev))
                  for i in range(steps)]
-        chol.reset_counts()
+        counters.reset()
         stats = {}
         op, cp, losses = C.train_conditioned_chunked(
             models[0].params, models[1].params, models[0].consts, models[1].consts,
             models[0].config, data, None, steps, 0.01, 1e-8, 24, draws=draws, stats=stats)
         if dev != "cpu":
-            assert chol.launches == 2 * steps and stats["replays"] == steps - 2
+            assert counters.get("k1.launches") == 2 * steps and stats["replays"] == steps - 2
         runs.append([losses] + _predictive(op, models[0], dev) + _predictive(cp, models[1], dev))
     _assert_rel(runs[1], runs[0])
 
@@ -720,11 +720,11 @@ def test_acquisition_without_inverse_on_card_f64(cuda_device, monkeypatch):
             J.coupled_acq_stacked(*pair, f, torch.as_tensor(xq, device=dev)).detach().cpu()
             for f in (0, 1)])
         if dev != "cpu":
-            fused_svgp.reset_counts()
+            counters.reset()
             _, vals = J.optimize_coupled_jes_all_fidelities(*pair, None, 2, raw_samples=40,
                                                             maxiter=20, raw=raw.to(dev))
             torch.cuda.synchronize()
-            searches[inv] = (vals.cpu(), fused_svgp.launches)
+            searches[inv] = (vals.cpu(), counters.get("k2.launches"))
     card = str(cuda_device)
     torch.testing.assert_close(gains[(card, False)], gains[(card, True)], rtol=1e-6, atol=1e-8)
     _assert_rel([gains[(card, False)]], [gains[("cpu", False)]])
@@ -734,7 +734,8 @@ def test_acquisition_without_inverse_on_card_f64(cuda_device, monkeypatch):
 
 def test_counters_under_replay(cuda_device):
     """K1's launches count the launches that ran (the capture records one,
-    each replay runs one) and its escalations accumulate under replay."""
+    each replay runs one), and so do the Steps' own counts; its escalations
+    accumulate under replay."""
     from mobocmf_tpu_torch.fit import graphs
 
     a = _spd(3, 64, 5, torch.float32, cuda_device)
@@ -745,19 +746,22 @@ def test_counters_under_replay(cuda_device):
     def step():
         out.copy_(chol.cholesky(a, jit, ladder=True)[0])
 
-    chol.reset_counts()
+    counters.reset()
+    esc0 = chol.escalations()
     steps = graphs.Steps(step, cuda_device)
     steps.run(7)
     steps.run(4)
     torch.cuda.synchronize()
     assert steps.replays == 11 - graphs.WARMUP and steps.steps == 11
-    assert chol.launches == 11 and chol.captured == 1
-    assert chol.escalations() == 11
+    assert counters.get("k1.launches") == 11 and counters.recorded["k1.launches"] == 1
+    assert steps.counts == {"k1.launches": 11}
+    assert chol.escalations() - esc0 == 11
     want, _ = chol.cholesky_plain(a, jit, True)
     torch.testing.assert_close(out[[0, 2]], want[[0, 2]], rtol=1e-4, atol=1e-4)
     steps.close()
-    chol.reset_counts()
-    assert chol.escalations() == 0
+    # the eager path adds into the tensor the graph added into
+    step()
+    assert chol.escalations() - esc0 == 12
 
 
 def _trsm_per_call(fn, calls=2) -> float:
@@ -797,9 +801,9 @@ def test_captured_f64_training_step_solves_once_a_layer(cuda_device):
     # lr 0: every step differentiates the initial model
     phase = trainer.TrainPhase(model, xt, yt, ft, 0.0, "all_free", n, chunk=3)
     try:
-        ops.reset_counts()
+        counters.reset()
         phase.run_chunk(eps, None)  # two eager steps, the capture, one replay
-        assert phase.steps.replays == 1 and ops.inv_launches == 3 * nf
+        assert phase.steps.replays == 1 and counters.get("inv.states") == 3 * nf
         one = eps[:1]
         replay = _trsm_per_call(lambda: phase.run_chunk(one, None))
         l = torch.linalg.cholesky(_spd(3, n, 1, torch.float64, dev))
@@ -973,9 +977,9 @@ def test_split_inverse_route_matches_dense_at_m2048(cuda_device, monkeypatch):
     runs = []
     for leaf in (m, ops.GEMM_LEAF):
         monkeypatch.setattr(ops, "GEMM_LEAF", leaf)
-        ops.reset_counts()
+        counters.reset()
         runs.append(route())
-        assert (ops.inv_gemm_skipped > 0) == (leaf < m)
+        assert (counters.get("inv.gemm_skipped") > 0) == (leaf < m)
     for got, want in zip(runs[1], runs[0]):
         rel = ((got - want).abs().max() / want.abs().max()).item()
         assert rel < 1e-12, rel
@@ -987,7 +991,7 @@ def test_split_inverse_route_matches_dense_at_m2048(cuda_device, monkeypatch):
     per_step = []
     for capture in (False, True):
         steps = graphs.Steps(step, cuda_device, leaves=[k, ls], capture=capture)
-        ops.reset_counts()
+        counters.reset()
         steps.run(3)
         torch.cuda.synchronize()
         stats = trainer.steps_stats(steps)

@@ -19,6 +19,7 @@ from mobocmf_tpu_torch.linalg.fused_svgp import fused_rbf_svgp_forward
 from mobocmf_tpu_torch.linalg.ops import ladder_jitter
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models import svgp
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -10,6 +10,7 @@ import pytest
 
 from mobocmf_tpu.util import hypervolume as JH
 from mobocmf_tpu_torch.util import hypervolume as PH
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _front(seed, n, k):

@@ -32,6 +32,7 @@ from mobocmf_tpu.linalg.fused_svgp import reference_forward
 from mobocmf_tpu_torch.fit.bucketing import next_bucket
 from mobocmf_tpu_torch.linalg import chol
 from mobocmf_tpu_torch.linalg import fused_svgp as K2
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SOURCE = Path(K2.__file__).resolve().parent.parent / "csrc" / "fused_svgp.cu"
 NB = 32

@@ -19,6 +19,7 @@ from mobocmf_tpu_torch.fit import bucketing as pbuck
 from mobocmf_tpu_torch.kernels import deep_mf as pdeep
 from mobocmf_tpu_torch.kernels import rbf as prbf
 from mobocmf_tpu_torch.test_functions import synthetic as psyn
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _t(tree):

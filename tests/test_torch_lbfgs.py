@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from mobocmf_tpu_torch.acquisition import lbfgs as LB
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 HISTORY = 30

@@ -16,6 +16,8 @@ import torch
 from mobocmf_tpu.linalg import chol as jchol
 from mobocmf_tpu.linalg import ops as jops
 from mobocmf_tpu_torch.linalg import chol, ops
+from mobocmf_tpu_torch.util import counters
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _spd(n, seed=0, batch=None):
@@ -86,11 +88,11 @@ def test_indefinite_gives_nan_and_never_raises(ladder):
 def test_f32_ladder_matches_jax_safe_cholesky(scale, min_eig_rel, rung):
     k = _rbf_gram_shifted(scale=scale, min_eig_rel=min_eig_rel)
     want = np.asarray(jops.safe_cholesky(jnp.asarray(k), 2e-6))
-    chol.reset_counts()
+    esc0 = chol.escalations()
     got = ops.safe_cholesky(torch.as_tensor(k), 2e-6)
     _, level = chol.cholesky(torch.as_tensor(k), 2e-6, ladder=True)
     assert level.item() == rung
-    assert chol.escalations() == 2
+    assert chol.escalations() - esc0 == 2
     assert np.all(np.isfinite(want))
     assert bool(torch.isfinite(got).all())
     # f32 factors of a matrix of condition ~1e5 after the rung's jitter
@@ -196,11 +198,11 @@ def test_safe_cholesky_inv_gradcheck():
                 ops.tri_solve_lower(l, torch.tril(bl), l_inv, b_lower=True))
 
     for leaf in (ops.GEMM_LEAF, 2):
-        ops.reset_counts()
+        counters.reset()
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(ops, "GEMM_LEAF", leaf)
             assert torch.autograd.gradcheck(outputs, (k, b, b_low))
-        assert (ops.inv_gemm_skipped > 0) == (leaf == 2)
+        assert (counters.get("inv.gemm_skipped") > 0) == (leaf == 2)
 
 
 # the route's structures: (a, b, lower-only output), each product of
@@ -231,13 +233,14 @@ def test_structured_product_matches_the_dense_product(kind_a, kind_b, lower_out,
     b = operand(kind_b, inner, m if kind_b != "dense" or lower_out else p)
     want = a @ b
     for leaf in (4, None):
-        ops.reset_counts()
+        counters.reset()
         got = ops._product(a, b, kind_a, kind_b, lower_out, leaf=leaf)
-        assert ops.inv_gemm_flops + ops.inv_gemm_skipped == 2 * 6 * m * inner * b.shape[-1]
+        issued, skipped = counters.get("inv.gemm_flops"), counters.get("inv.gemm_skipped")
+        assert issued + skipped == 2 * 6 * m * inner * b.shape[-1]
         if leaf is None:
-            assert torch.equal(got, want) and ops.inv_gemm_skipped == 0
+            assert torch.equal(got, want) and skipped == 0
             continue
-        assert ops.inv_gemm_skipped > 0
+        assert skipped > 0
         keep = torch.tril if lower_out else (lambda x: x)
         assert float((keep(got) - keep(want)).abs().max() / keep(want).abs().max()) < 1e-13
 
@@ -253,9 +256,9 @@ def test_safe_cholesky_inv_matches_the_solve_route(n, leaf, monkeypatch):
     if leaf is not None:
         monkeypatch.setattr(ops, "GEMM_LEAF", leaf)
     k = _rbf_gram(2, n, n).requires_grad_(True)
-    ops.reset_counts()
+    counters.reset()
     l, level, l_inv = ops.safe_cholesky_inv(k, 2e-6)
-    assert ops.inv_launches == 1 and level.tolist() == [0, 0]
+    assert counters.get("inv.states") == 1 and level.tolist() == [0, 0]
     l_ref, _ = ops.safe_cholesky_level(k, 2e-6)
     eye = torch.eye(n, dtype=torch.float64)
     l_inv_ref = torch.linalg.solve_triangular(l_ref, eye, upper=False)
@@ -284,13 +287,13 @@ def test_safe_cholesky_inv_matches_the_solve_route(n, leaf, monkeypatch):
         got, = torch.autograd.grad(loss, k, retain_graph=True)
         want, = torch.autograd.grad(loss_ref, k, retain_graph=True)
         assert rel(got, want) < 1e-11
-    assert (ops.inv_gemm_skipped > 0) == (leaf is not None)
+    assert (counters.get("inv.gemm_skipped") > 0) == (leaf is not None)
 
 
 @pytest.mark.parametrize("route", ["inverse", "inverse-adjoint", "solve-f64", "solve-f32",
                                    "inverse-split", "inverse-adjoint-split"])
 def test_inv_gemm_flops_closed_form(route, monkeypatch):
-    """ops.inv_gemm_flops after one factor and one product with L^{-1} (B =
+    """"inv.gemm_flops" after one factor and one product with L^{-1} (B =
     2, m = 16, 5 columns) and their backward: per matrix 3 x 2 m^2 n for
     the refined product, 2 x 2 m^2 n for its backward, 3 x 2 m^3 for the
     pullback through the inverse, and 2 x 2 m^3 more for an adjoint of
@@ -307,12 +310,12 @@ def test_inv_gemm_flops_closed_form(route, monkeypatch):
     dtype = torch.float32 if route == "solve-f32" else torch.float64
     k = torch.as_tensor(_spd(m, seed=3, batch=bsz), dtype=dtype).requires_grad_(True)
     b = torch.as_tensor(np.random.default_rng(4).normal(size=(bsz, m, n)), dtype=dtype)
-    ops.reset_counts()
+    counters.reset()
     if route.startswith("inverse"):
         adjoint = route.startswith("inverse-adjoint")
         l, _, l_inv = ops.safe_cholesky_inv(k, 2e-6)
         w = ops.tri_solve_lower(l, b, l_inv)
-        assert ops.inv_gemm_flops == bsz * (9 if split else 12) * m * m * n // 2
+        assert counters.get("inv.gemm_flops") == bsz * (9 if split else 12) * m * m * n // 2
         loss = torch.sum(w ** 2) + (torch.sum(l_inv) if adjoint else 0.0)
         dense = bsz * (10 * m * m * n + 6 * m ** 3 + (4 * m ** 3 if adjoint else 0))
         want = (bsz * (30 * m * m * n + 15 * m ** 3 + (10 * m ** 3 if adjoint else 0)) // 4
@@ -322,5 +325,6 @@ def test_inv_gemm_flops_closed_form(route, monkeypatch):
         loss = torch.sum(ops.tri_solve_lower(l, b) ** 2)
         dense = want = 0
     loss.backward()
-    assert ops.inv_gemm_flops == want and ops.inv_gemm_captured == 0
-    assert ops.inv_gemm_skipped == dense - want and ops.inv_gemm_skipped_captured == 0
+    assert counters.get("inv.gemm_flops") == want and counters.recorded["inv.gemm_flops"] == 0
+    assert (counters.get("inv.gemm_skipped") == dense - want
+            and counters.recorded["inv.gemm_skipped"] == 0)

@@ -18,18 +18,9 @@ from mobocmf_tpu.fit.fitter import BlackBoxMFDGPFitter as JFitter
 from mobocmf_tpu_torch.bo import loop as PL
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter as PFitter
 from mobocmf_tpu_torch.models.convert import fitter_from_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small tensor ops, for which torch's intra-op
-    thread pool costs far more than it gives on a shared CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _bowl(shift, offset):

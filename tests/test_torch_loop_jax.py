@@ -15,20 +15,11 @@ import torch
 from mobocmf_tpu.bo import loop as JL
 from mobocmf_tpu_torch.bo import loop as PL
 from test_torch_loop import FAST, blackboxes, initial_design
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 COMMON = dict(FAST, num_bo_iterations=2, track_recommendation=True,
               recommendation_grid_size=100, hv_reference=np.array([3.0, 3.0]))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small tensor ops, for which torch's intra-op
-    thread pool costs far more than it gives on a shared CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(pkg, log_dir, iterations):

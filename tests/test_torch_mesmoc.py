@@ -20,17 +20,9 @@ from mobocmf_tpu_torch.acquisition import optimize as PO
 from mobocmf_tpu_torch.examples import example_mesmoc_mfgp as E
 from mobocmf_tpu_torch.models import convert
 from mobocmf_tpu_torch.util.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    # small ops: several intra-op threads only slow them down on this CPU
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port(m):

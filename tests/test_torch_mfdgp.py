@@ -18,6 +18,7 @@ from mobocmf_tpu_torch.mlls.elbo import elbo_terms
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.convert import model_from_numpy, model_to_numpy
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 
@@ -333,19 +334,19 @@ def test_layer_states_take_the_inverse_route_when_differentiated_at_f64(dtype, g
     factor to 1e-11; a deeper factor, whose Gram takes the inducing chain's
     mean, matches the solves' to 1e-11 (the chain's rounding moves its
     products by up to cond(Kzz) times that, 4e-11 here)."""
-    from mobocmf_tpu_torch.linalg import ops
     from mobocmf_tpu_torch.models import svgp
+    from mobocmf_tpu_torch.util import counters
 
     x, y, fid = _data(8)
     pm = M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(0), device="cpu",
                       dtype=dtype, whitened=whitened)
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True), pm.params)
-    ops.reset_counts()
+    counters.reset()
     with torch.set_grad_enabled(grad):
         states = M.compute_layer_states(params, pm.consts, pm.config)
         want = _states_by_solves(params, pm.consts, pm.config)
     route = grad and dtype == torch.float64
-    assert ops.inv_launches == (2 if route else 0)
+    assert counters.get("inv.states") == (2 if route else 0)
 
     def rel(a, b):
         return float((a - b).detach().abs().max() / b.detach().abs().max())

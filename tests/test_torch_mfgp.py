@@ -23,6 +23,7 @@ from mobocmf_tpu_torch.models import exact_gp as PEG
 from mobocmf_tpu_torch.models import mfgp as PG
 from mobocmf_tpu_torch.models import mfgp_lin as PGL
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 RTOL = 1e-9

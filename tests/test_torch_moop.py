@@ -12,6 +12,7 @@ from mobocmf_tpu.sampling import rff as jrff
 from mobocmf_tpu_torch.fit import fitter as pfitter
 from mobocmf_tpu_torch.moop import moop
 from mobocmf_tpu_torch.sampling import rff
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -22,18 +22,9 @@ from mobocmf_tpu.moop import moop as jmoop
 from mobocmf_tpu.sampling import rff as jrff
 from mobocmf_tpu_torch.moop import moop
 from mobocmf_tpu_torch.sampling import rff
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small tensor ops, for which torch's intra-op
-    thread pool costs far more than it gives on a shared CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _to_port_sample(js):

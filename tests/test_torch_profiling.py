@@ -6,6 +6,7 @@ finally refused, never summed. Sessions are stood in for by lists of
 import pytest
 
 from mobocmf_tpu_torch import profiling
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 K2 = {"gram_factor_kernel": 1, "solve_kernel": 2}
 

@@ -16,6 +16,7 @@ from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.models.convert import model_from_numpy
 from mobocmf_tpu_torch.sampling import rff
 from mobocmf_tpu_torch.test_functions.prior_problem import sample_problem
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -28,6 +28,7 @@ from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.convert import model_to_numpy
 from mobocmf_tpu_torch.parallel import dryrun, launch
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 WORLD = 8
@@ -37,14 +38,6 @@ WORLD = 8
 def ranks():
     with launch.Group(WORLD, "cpu", timeout_s=240, threads=1) as group:
         yield group
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):

@@ -1,8 +1,9 @@
 """The program's spans and capture counters on the CPU
-(util/profiling.py::span, fit/graphs.py::Steps, fit/trainer.py,
-fit/conditioned.py, acquisition/lbfgs.py): no span without a profiler,
-a chunk's spans under one, none recorded inside a step closure, the
-search's spans, and the capture record's warm-up seconds and pool bytes."""
+(util/profiling.py::span, util/counters.py, fit/graphs.py::Steps,
+fit/trainer.py, fit/conditioned.py, acquisition/lbfgs.py): no span without
+a profiler, a chunk's spans under one, none recorded inside a step
+closure, the search's spans, the counters' two tallies and a Steps'
+counts, and the capture record's warm-up seconds and pool bytes."""
 
 import contextlib
 
@@ -14,18 +15,11 @@ from mobocmf_tpu_torch.acquisition import lbfgs
 from mobocmf_tpu_torch.fit import conditioned as C
 from mobocmf_tpu_torch.fit import graphs, trainer
 from mobocmf_tpu_torch.fit.fitter import BlackBoxMFDGPFitter
-from mobocmf_tpu_torch.util import profiling
+from mobocmf_tpu_torch.util import counters, profiling
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 PREFIXES = ("graphs.", "train.", "cond.", "lbfgs.")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +139,34 @@ def test_capture_record_carries_warmup_and_pool(fitter):
     assert stats["warmup_seconds"] == 0.0 and stats["pool_bytes"] == 0
     assert stats["capture_seconds"] == 0.0 and stats["steps"] == 3 and stats["replays"] == 0
     assert graphs.setup_seconds == before
+
+
+def test_counters_keep_what_a_capture_records_apart(monkeypatch):
+    """An add while the current stream is capturing lands in the recorded
+    tally, not in `get`; reset() clears both."""
+    counters.reset()
+    counters.add("k1.launches")
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    counters.add("k1.launches", 3)
+    assert counters.get("k1.launches") == 1 and counters.recorded["k1.launches"] == 3
+    counters.reset()
+    assert counters.get("k1.launches") == 0 and not counters.recorded
+
+
+def test_steps_counts_what_its_runs_added():
+    """A Steps' counts are what its runs added to the ran tally, and
+    steps_stats derives the inverse route's keys from them."""
+    counters.add("inv.states", 5)
+
+    def step():
+        counters.add("inv.states", 2)
+        counters.add("inv.gemm_flops", 10)
+
+    steps = graphs.Steps(step, torch.device("cpu"))
+    steps.run(3)
+    steps.run(1)
+    assert steps.counts == {"inv.states": 8, "inv.gemm_flops": 40}
+    stats = trainer.steps_stats(steps)
+    assert (stats["inv_states"], stats["inv_gemm_flops_per_step"],
+            stats["inv_gemm_skipped_per_step"]) == (8, 10.0, 0.0)

@@ -20,7 +20,9 @@ from mobocmf_tpu.models import mfdgp as JM
 from mobocmf_tpu_torch.fit import bucketing, fitter, trainer
 from mobocmf_tpu_torch.models import mfdgp as M
 from mobocmf_tpu_torch.models.convert import model_from_numpy, model_to_numpy
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 
@@ -193,40 +195,37 @@ def test_fitter_end_to_end_with_padding():
 def test_phase_counts_its_layer_states_through_the_inverse(dtype, batch_size, per_epoch):
     """`steps_stats`' inv_states: F layer states an update through the
     explicit inverse at float64 (3 minibatches an epoch at 5 of 14 rows),
-    none at float32; linalg/ops.py's counter moves by as much. The route's
-    GEMM operations per step likewise: the counter over the 3 epochs."""
-    from mobocmf_tpu_torch.linalg import ops
-
+    none at float32; util/counters.py's "inv.states" moves by as much. The
+    route's GEMM operations per step likewise: the counter over the 3
+    epochs."""
     x, ys, fid = _problem()
     models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
                            device="cpu", dtype=dtype) for i, y in enumerate(ys)]
     stats = {}
-    ops.reset_counts()
+    counters.reset()
     trainer.train_phase_stacked_chunked(
         trainer.stack_models(models), torch.as_tensor(x, dtype=dtype),
         torch.as_tensor(ys, dtype=dtype), torch.as_tensor(fid), 3, 1e-3, "all_free", batch_size,
         generator=torch.Generator().manual_seed(1), stats=stats)
-    assert stats["inv_states"] == ops.inv_launches == 3 * per_epoch
-    assert stats["inv_gemm_flops_per_step"] == ops.inv_gemm_flops / 3
+    assert stats["inv_states"] == counters.get("inv.states") == 3 * per_epoch
+    assert stats["inv_gemm_flops_per_step"] == counters.get("inv.gemm_flops") / 3
     assert (stats["inv_gemm_flops_per_step"] > 0) == (per_epoch > 0)
 
 
 def test_b128_step_splits_no_product():
     """At m = 128 (the b128 cells' width) no structured product of the
     inverse route splits: a training step skips nothing."""
-    from mobocmf_tpu_torch.linalg import ops
-
     x, ys, fid = _problem(n_real=128, seed=2)
     models = [M.init_mfdgp(x, y, fid, 2, generator=torch.Generator().manual_seed(i),
                            device="cpu", dtype=F64) for i, y in enumerate(ys)]
     stats = {}
-    ops.reset_counts()
+    counters.reset()
     trainer.train_phase_stacked_chunked(
         trainer.stack_models(models), torch.as_tensor(x), torch.as_tensor(ys),
         torch.as_tensor(fid), 1, 1e-3, "all_free", 128,
         generator=torch.Generator().manual_seed(1), stats=stats)
     assert stats["inv_gemm_flops_per_step"] > 0
-    assert stats["inv_gemm_skipped_per_step"] == 0 == ops.inv_gemm_skipped
+    assert stats["inv_gemm_skipped_per_step"] == 0 == counters.get("inv.gemm_skipped")
 
 
 def test_split_products_train_as_the_dense_route(monkeypatch):

@@ -12,6 +12,7 @@ import torch
 from mobocmf_tpu.util import util as JU
 from mobocmf_tpu_torch.util import util as PU
 from mobocmf_tpu_torch.util.profiling import phase_report, phase_timer, reset_phase_times, trace
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def test_pickles_and_paths(tmp_path):

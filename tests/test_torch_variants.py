@@ -39,6 +39,7 @@ from mobocmf_tpu_torch.util.tree import tree_leaves, tree_map
 from test_torch_chunked import _cond_draws
 from test_torch_conditioned import _jax_step_draws, _setup
 from test_torch_trainer import _port_model
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 F64 = torch.float64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

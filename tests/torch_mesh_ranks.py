@@ -16,6 +16,7 @@ from mobocmf_tpu_torch.fit import conditioned as C
 from mobocmf_tpu_torch.fit import trainer
 from mobocmf_tpu_torch.models.convert import model_from_numpy
 from mobocmf_tpu_torch.parallel import sharding
+from mobocmf_tpu_torch.util import counters
 from mobocmf_tpu_torch.util.tree import tree_leaves
 
 F64 = torch.float64
@@ -148,11 +149,11 @@ def training_on_card(model_np, x, ys, fid, epochs, eps):
     dev = torch.device("cuda", torch.cuda.current_device())
     stats: dict = {}
     m = sharding.make_mesh()
-    sharding.reset_counts()
+    counters.reset()
     _, logs = trainer.train_phase_stacked_chunked(
         port_model(model_np, dev), t64(x, dev), t64(ys, dev), t64(fid, dev), epochs, 0.003,
         "all_free", x.shape[0], eps=t64(eps, dev), stats=stats, mesh=m)
-    return stats, logs.loss.cpu().numpy(), sharding.calls
+    return stats, logs.loss.cpu().numpy(), counters.get("collectives")
 
 
 # ---------------------------------------------------------------------------
